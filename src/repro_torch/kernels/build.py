@@ -4,8 +4,7 @@ Each source under ``kernels/*/csrc/`` has a plain C interface and is
 compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), at first use.  A library is
 named by the hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as built.  :func:`build` starts one nvcc
-per source, all at once, and waits for all of them.
+and an unchanged one is loaded as built.
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
 
@@ -48,41 +47,28 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def build(sources: Sequence[Path]) -> List[dict]:
-    """Compile every source not built yet, all nvcc processes at once.
+def build(source: Path) -> dict:
+    """Compile ``source`` unless it is built already.
 
-    Returns one record per source: ``library``, ``seconds`` (0.0 when it
-    was already built) and ``log`` (nvcc's ``-Xptxas -v`` report of
-    registers, shared memory and spills).  Raises on any failed build.
+    Returns ``library``, ``seconds`` (0.0 when it was already built) and
+    ``log`` (nvcc's ``-Xptxas -v`` report of registers, shared memory and
+    spills).  Raises if nvcc fails.
     """
+    out = library_path(source)
+    if out.exists():
+        return {"library": str(out), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = []
-    for src in sources:
-        out = library_path(src)
-        if out.exists():
-            jobs.append((src, out, None, None, 0.0))
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        jobs.append((src, out, tmp, proc, time.perf_counter()))
-    records = []
-    for src, out, tmp, proc, t0 in jobs:
-        if proc is None:
-            records.append({"source": str(src), "library": str(out),
-                            "seconds": 0.0, "log": ""})
-            continue
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        os.replace(tmp, out)  # atomic: a reader never sees a partial file
-        records.append({"source": str(src), "library": str(out),
-                        "seconds": seconds, "log": log})
-    return records
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a reader never sees a partial file
+    return {"library": str(out), "seconds": time.perf_counter() - t0,
+            "log": proc.stdout}
 
 
 def load(source: Path) -> ctypes.CDLL:
@@ -90,6 +76,6 @@ def load(source: Path) -> ctypes.CDLL:
     out = library_path(source)
     lib = _LOADED.get(out)
     if lib is None:
-        build([source])
+        build(source)
         lib = _LOADED[out] = ctypes.CDLL(str(out))
     return lib

@@ -35,6 +35,7 @@ __all__ = [
     "chunked_attention",
     "init_attention",
     "attention_forward",
+    "attention_output",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -208,6 +209,15 @@ def _attend(q, k, v, cfg, *, causal, window, force_ref):
                              chunk=cfg.attn_chunk)
 
 
+def attention_output(p, q, k, v, cfg, *, causal, window, force_ref=False):
+    """Attention of projected ``q``/``k``/``v`` followed by the output
+    projection: (B, S, d_model)."""
+    B, S = q.shape[:2]
+    out = _attend(q, k.contiguous(), v.contiguous(), cfg, causal=causal,
+                  window=window, force_ref=force_ref)
+    return dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+
+
 def attention_forward(p, x, cfg, *, window=None, causal=True, kv=None,
                       positions=None, force_ref=False):
     """Training/prefill attention.  kv: optional external (k, v) for
@@ -222,6 +232,5 @@ def attention_forward(p, x, cfg, *, window=None, causal=True, kv=None,
         q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
         k, v = kv
         causal = False
-    out = _attend(q, k.contiguous(), v.contiguous(), cfg, causal=causal,
-                  window=window, force_ref=force_ref)
-    return dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+    return attention_output(p, q, k, v, cfg, causal=causal, window=window,
+                            force_ref=force_ref)

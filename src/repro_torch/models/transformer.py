@@ -28,14 +28,14 @@ from ..core.errors import KampingError
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (
-    apply_rotary,
+    _project_qkv,
     attention_forward,
+    attention_output,
     dense,
     gated_mlp,
     init_attention,
     init_dense,
     init_mlp,
-    make_rotary,
     rms_norm,
     torch_dtype,
 )
@@ -201,16 +201,18 @@ def _block_prefill(p, x, kind, cfg, caches, i, force_ref=False):
     B, S, _ = x.shape
     L = caches["k"].shape[2]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    k = dense(p["attn"]["wk"], h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(p["attn"]["wv"], h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    cos, sin = make_rotary(torch.arange(S, device=x.device), cfg.head_dim,
-                           cfg.rope_theta)
-    kr = apply_rotary(k, cos, sin)
+    # one projection serves both the cache and the attention (under jit
+    # the JAX package's XLA merges its two; eager torch would run both)
+    q, k, v = _project_qkv(p["attn"], h, cfg, torch.arange(S, device=x.device))
     n_keep = min(L, S)
     idx = torch.arange(S - n_keep, S, device=x.device) % L
-    caches["k"][:, i, idx] = kr[:, S - n_keep:].to(caches["k"].dtype)
+    caches["k"][:, i, idx] = k[:, S - n_keep:].to(caches["k"].dtype)
     caches["v"][:, i, idx] = v[:, S - n_keep:].to(caches["v"].dtype)
-    return _block_forward(p, x, kind, cfg, force_ref=force_ref)
+    x = x + attention_output(p["attn"], q, k, v, cfg, causal=True,
+                             window=_attn_window(cfg, kind),
+                             force_ref=force_ref)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + gated_mlp(p["mlp"], h, cfg.act)
 
 
 def prefill(params, batch, cfg, max_len=None, true_len=None,
@@ -287,13 +289,8 @@ def _attn_decode_ring(p, x, cfg, k_cache, v_cache, pos, window):
     token's row is written at slot ``pos % L``."""
     B = x.shape[0]
     L = k_cache.shape[1]
-    q = dense(p["wq"], x).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-    k = dense(p["wk"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
     positions = pos.long()
-    cos, sin = make_rotary(positions[:, None], cfg.head_dim, cfg.rope_theta)
-    qr = apply_rotary(q, cos, sin)
-    kr = apply_rotary(k, cos, sin)
+    qr, kr, v = _project_qkv(p, x, cfg, positions[:, None])
     rows = torch.arange(B, device=x.device)
     slot = positions % L
     k_cache[rows, slot] = kr[:, 0].to(k_cache.dtype)
