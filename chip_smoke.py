@@ -8,15 +8,32 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. device — the card's name and power limit (nvidia-smi); TF32 off.
-2. build — nvcc builds the serve path's kernel from the source in the
-   checkout.
-3. kernels — each kernel against its plain PyTorch version on the card,
-   at the serve shapes and at GQA, window, ragged and non-causal shapes,
-   in fp32 (2e-5) and bf16 (3e-2, and within half a bf16 ulp of the
-   plain version in fp32); card times at the serve shapes (CUDA graph
-   replay) beside the bound, the plain version and one PyTorch library
-   call as a yardstick, and the same calls issued one by one from Python.
-4. serve — full-width qwen1.5-0.5B in bf16 (random weights from a seeded
+2. build — nvcc builds both kernel sources from the checkout, one nvcc
+   per source, started together; each build's time and ptxas register
+   and spill lines.
+3. kernels — the flash-attention kernel against its plain PyTorch
+   version on the card, at the serve shapes and at GQA, window, ragged
+   and non-causal shapes, in fp32 (2e-5) and bf16 (3e-2, and within half
+   a bf16 ulp of the plain version in fp32); card times at the serve
+   shapes (CUDA graph replay) beside the bound, the plain version and one
+   PyTorch library call as a yardstick, and the same calls issued one by
+   one from Python.
+4. ring-kernels — the ring reduce-scatter (B1), allgather (B2), their
+   allreduce composition (B3) and the alltoall (B4) against their plain
+   versions, bitwise (``torch.equal``), at p in {1, 2, 3, 4, 8}, m in
+   {1, 7, 4099, 2^20}, in all six dtypes (integers over their full range,
+   so sums wrap), and on a batched ring (p = 8 in blocks of 4); card
+   times at the main paths' shapes beside the bytes bound, the plain
+   version and one PyTorch call as a yardstick.
+5. allreduce — ``Communicator("data", transport="ring").allreduce`` of a
+   gradient-sized fp32 payload (qwen1.5-0.5B's parameter count, from the
+   port's ``init_params`` on the meta device) at p = 4 emulated ranks:
+   exactly 1 B1 and 1 B2 launch; equal to the exact sum and bitwise equal
+   to the same call on ``native``.
+6. sort — ``examples/torch_sample_sort.py`` on ``ring`` at p = 8 with
+   2^24 int32 keys per rank: exactly 1 B2 (splitters) and 2 B4 (buckets,
+   counts transpose) launches; the output equals ``torch.sort``.
+7. serve — full-width qwen1.5-0.5B in bf16 (random weights from a seeded
    ``torch.Generator``) answers 8 requests through
    ``repro_torch.serve.ServeEngine``; every launch counter is set to 0
    just before and read just after, and must show every kernel of the
@@ -24,16 +41,20 @@ Phases (any failure raises and the script exits non-zero):
    prefill logits through the kernel match the plain-version path, and a
    small fp32 model on the card matches the same model on the CPU.
 
-The last lines are the card's name and power limit, one JSON object with
-the kernel table, and ``{"ok": true, "device": {...}}``.
+Each path's launch counters are set to 0 just before it runs and read
+just after.  The last lines are the card's name and power limit, one JSON
+object with the kernel table, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
+import operator
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -42,7 +63,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import Communicator, op, send_buf, spmd  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
+from repro_torch.kernels.collectives import ops as ring_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -76,6 +99,23 @@ MAX_NEW = 32
 # bf16 ulp (2^-8 relative) where the two fp32 sums straddle a rounding
 # boundary; 24 layers carry such flips into the logits at well under 2%.
 LOGIT_REL_TOL = 2e-2
+
+# Ring kernels: every check is bitwise (torch.equal) against the plain
+# version — pure data movement, and sums folded in the same order with the
+# same rounding.
+RING_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16,
+               torch.int32, torch.int64)
+RING_PS = (1, 2, 3, 4, 8)
+RING_MS = (1, 7, 4099, 1 << 20)
+ALLREDUCE_RANKS = 4            # the data-parallel width of the allreduce
+SORT_RANKS, SORT_KEYS = 8, 1 << 24  # the sort: 2^24 int32 keys per rank
+RING_SOURCE = ("src/repro_torch/kernels/collectives/csrc/"
+               "ring_collectives.cu")
+RING_REPLACES = {
+    "ring_reduce_scatter": "src/repro/kernels/collectives/collectives.py:117",
+    "ring_allgather": "src/repro/kernels/collectives/collectives.py:69",
+    "ring_alltoall": "src/repro/kernels/collectives/collectives.py:176",
+}
 
 
 def nvidia_smi() -> str:
@@ -368,6 +408,234 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# ring collectives
+# ---------------------------------------------------------------------------
+def ring_counts():
+    return {name: getattr(ring_ops, name).launches for name in RING_REPLACES}
+
+
+def zero_ring_counts():
+    for name in RING_REPLACES:
+        getattr(ring_ops, name).launches = 0
+
+
+def ring_input(shape, dtype, gen):
+    """Random payload: gaussian floats, integers over their full range (so
+    sums overflow and must wrap)."""
+    dev = torch.device("cuda")
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max, shape, generator=gen,
+                         device=dev, dtype=dtype)
+
+
+def bitwise(got, want):
+    """(equal, max_abs_err) of a kernel result against its plain version."""
+    torch.cuda.synchronize()
+    same = got.shape == want.shape and got.dtype == want.dtype and \
+        torch.equal(got, want)
+    if got.numel() == 0:
+        return same, 0.0
+    err = float((got.double() - want.double()).abs().max())
+    return same, err
+
+
+def ring_bound(name, p, m, dtype):
+    """(bound_ms, bytes): each input element read once, each output element
+    written once, over the card's memory rate.  The adds of B1 (p*p*m) at
+    the fp32 peak take under 1% of that, so bytes bound all three."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    elems = {"ring_reduce_scatter": p * p * m + p * m,
+             "ring_allgather": p * m + p * p * m,
+             "ring_alltoall": 2 * p * p * m}[name]
+    nbytes = elems * esize
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def phase_ring_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err = {name: 0.0 for name in RING_REPLACES}
+    err["ring_allreduce"] = 0.0
+    n_checks = 0
+    cases = [(p, m, 1) for p in RING_PS for m in RING_MS] + [
+        (4, m, 2) for m in RING_MS]  # p = 8 ranks as 2 rings of 4
+    for dtype in RING_DTYPES:
+        for p, m, rings in cases:
+            xs = ring_input((rings * p, p, m), dtype, gen)
+            row = xs[:, 0].contiguous()
+            for name, fn, x in (
+                ("ring_reduce_scatter", ring_ops.ring_reduce_scatter, xs),
+                ("ring_alltoall", ring_ops.ring_alltoall, xs),
+                ("ring_allgather", ring_ops.ring_allgather, row),
+                ("ring_allreduce", ring_ops.ring_allreduce, row),
+            ):
+                same, e = bitwise(fn(x, rings=rings),
+                                  fn(x, rings=rings, force_ref=True))
+                n_checks += 1
+                if not same:
+                    raise AssertionError(
+                        f"{name} disagrees with its plain version: "
+                        f"{str(dtype)[6:]} p={p} m={m} rings={rings} "
+                        f"max_abs_err={e}")
+                err[name] = max(err[name], e)
+            del xs, row
+    print(f"  {n_checks} checks bitwise equal: p in {list(RING_PS)}, m in "
+          f"{list(RING_MS)}, {len(RING_DTYPES)} dtypes, plus p=8 as 2 rings "
+          f"of 4 (max_abs_err {err})")
+
+    # card times at the main paths' shapes
+    rows = {}
+    p = ALLREDUCE_RANKS
+    m = allreduce_elements() // p
+    xs = ring_input((p, p, m), torch.float32, gen)
+    rows["ring_reduce_scatter"] = time_ring(
+        "ring_reduce_scatter", xs, p, m, lambda: xs.sum(0))
+    del xs
+    torch.cuda.empty_cache()
+    x = ring_input((p, m), torch.float32, gen)
+    rows["ring_allgather"] = time_ring(
+        "ring_allgather", x, p, m,
+        lambda: x.unsqueeze(0).expand((p,) + tuple(x.shape)).contiguous())
+    del x
+    torch.cuda.empty_cache()
+    p, m = SORT_RANKS, 2 * int(SORT_KEYS * 2.5 / SORT_RANKS)
+    xs = ring_input((p, p, m), torch.int32, gen)
+    rows["ring_alltoall"] = time_ring(
+        "ring_alltoall", xs, p, m, lambda: xs.transpose(0, 1).contiguous())
+    del xs
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        row["max_abs_err"] = err[name]
+    return rows
+
+
+def time_ring(name, x, p, m, library):
+    fn = getattr(ring_ops, name)
+    kern = lambda: fn(x)
+    plain = lambda: fn(x, force_ref=True)
+    ms = card_ms(kern, 3, replays=3)
+    plain_ms = card_ms(plain, 3, replays=3)
+    lib_ms = card_ms(library, 3, replays=3)
+    torch.cuda.empty_cache()
+    bound_ms, nbytes = ring_bound(name, p, m, x.dtype)
+    print(f"  time {name} p={p} m={m} {str(x.dtype)[6:]} (card, graph "
+          f"replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library "
+          f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms (bytes, "
+          f"{nbytes / 1e9:.3f} GB) -> {nbytes / ms / 1e6:.1f} GB/s, "
+          f"{bound_ms / ms:.1%} of the bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
+def allreduce_elements():
+    """qwen1.5-0.5B's parameter count, from the port's init_params on the
+    meta device (untied embeddings: lm_head counts)."""
+    cfg = get_config("qwen1.5-0.5b")
+    if cfg.tie_embeddings:
+        raise AssertionError("qwen1.5-0.5b is expected untied")
+    return sum(t.numel() for t in _leaves(init_params(cfg, device="meta")))
+
+
+def phase_allreduce():
+    """The data-parallel gradient allreduce on the ring transport."""
+    p, n = ALLREDUCE_RANKS, allreduce_elements()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # small integers in fp32: every sum is exact, whatever its order
+    g = torch.randint(-8, 8, (p, n), generator=gen, device="cuda",
+                      dtype=torch.float32)
+
+    def reduce(transport):
+        return spmd(lambda v: Communicator("data", transport=transport)
+                    .allreduce(send_buf(v), op(operator.add)), g,
+                    axis_name="data")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_ring_counts()
+    t0 = time.perf_counter()
+    out = reduce("ring")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ring_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"ring_reduce_scatter": 1, "ring_allgather": 1,
+                    "ring_alltoall": 0}:
+        raise AssertionError(f"allreduce launches {launches}: expected 1 B1 "
+                             "and 1 B2")
+    if out.shape != g.shape or out.dtype != g.dtype:
+        raise AssertionError(f"allreduce result {tuple(out.shape)}")
+    step = 1 << 26
+    for lo in range(0, n, step):  # exact sum, column block by block
+        want = g[:, lo:lo + step].double().sum(0).float()
+        if not torch.equal(out[:, lo:lo + step],
+                           want.expand(p, -1)):
+            raise AssertionError(f"allreduce differs from the exact sum in "
+                                 f"columns {lo}..{lo + step}")
+    walls = []
+    for _ in range(3):
+        del out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce("ring")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    native = reduce("native")
+    torch.cuda.synchronize()
+    if not torch.equal(out, native):
+        raise AssertionError("ring and native allreduce differ")
+    del out, native, g
+    torch.cuda.empty_cache()
+    gb = n * 4 / 1e9
+    print(f"  allreduce of {n} fp32 elements ({gb:.3f} GB per rank) over "
+          f"{p} ranks on ring: launches {launches}; first call "
+          f"{wall * 1e3:.3f} ms, then {', '.join(f'{w * 1e3:.3f}' for w in walls)}"
+          f" ms ({gb / min(walls):.1f} GB/s of payload per rank at the "
+          f"best); peak device memory {peak / 1e9:.3f} GB "
+          f"({(peak - base) / 1e9:.3f} GB above the input); equal to the "
+          "exact sum and bitwise equal to native")
+    return launches
+
+
+def phase_sort():
+    """The paper's sample sort (examples/torch_sample_sort.py) on ring."""
+    path = os.path.join(HERE, "examples", "torch_sample_sort.py")
+    spec = importlib.util.spec_from_file_location("torch_sample_sort", path)
+    sort = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sort)
+    p, n = SORT_RANKS, SORT_KEYS
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    data = torch.randint(0, 1 << 30, (p, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_ring_counts()
+    t0 = time.perf_counter()
+    merged, valid = sort.sample_sort(data, gen, transport="ring")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ring_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"ring_reduce_scatter": 0, "ring_allgather": 1,
+                    "ring_alltoall": 2}:
+        raise AssertionError(f"sort launches {launches}: expected 1 B2 and "
+                             "2 B4")
+    out = sort.gather_sorted(merged, valid)
+    if not torch.equal(out, torch.sort(data.reshape(-1)).values):
+        raise AssertionError("sample sort differs from torch.sort")
+    cap = sort.capacity(n, p)
+    print(f"  sorted {p * n} int32 keys over {p} ranks on ring in "
+          f"{wall * 1e3:.3f} ms ({p * n / wall / 1e6:.1f} M keys/s); "
+          f"buckets ({p}, {p}, {cap}); launches {launches}; bucket skew "
+          f"{float(valid.max()) / n:.4f}x; peak device memory "
+          f"{peak / 1e9:.3f} GB; equal to torch.sort")
+    del data, merged, valid, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -380,14 +648,26 @@ def main() -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}")
 
-    rec = build(flash_ops.SOURCE)
-    print(f"[build] {flash_ops.SOURCE.name} in {rec['seconds']:.2f} s")
-    for line in rec["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    sources = (flash_ops.SOURCE, ring_ops.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        recs = list(pool.map(build, sources))
+    for source, rec in zip(sources, recs):
+        print(f"[build] {source.name} in {rec['seconds']:.2f} s")
+        lines = {}
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                lines[line.strip()] = lines.get(line.strip(), 0) + 1
+        for line, count in lines.items():
+            print(f"  {line}" + (f" (x{count})" if count > 1 else ""))
 
     print("[kernels]")
     max_err, rows = phase_kernels()
+    print("[ring-kernels]")
+    ring_rows = phase_ring_kernels()
+    print("[allreduce]")
+    ar_launches = phase_allreduce()
+    print("[sort]")
+    sort_launches = phase_sort()
     print("[serve]")
     phase_reference()
     launches = phase_serve()
@@ -407,6 +687,13 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
     }]}
+    for name, row in ring_rows.items():
+        # launches: the allreduce's and the sort's runs, each counted from
+        # 0 just before it ran
+        table["kernels"].append(dict(
+            name=name, route="cuda", source=RING_SOURCE,
+            replaces=RING_REPLACES[name],
+            launches=ar_launches[name] + sort_launches[name], **row))
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -265,11 +265,11 @@ def axis(name) -> Param:
 
 def transport(name) -> Param:
     """Collective backend for this call (DESIGN.md §7): ``"native"`` (the
-    default; ``"xla"`` is its alias) or any backend registered via
-    :func:`repro_torch.core.transports.register_transport`.  The ring
-    backend (``"ring"``/``"pallas"``) is not ported yet and raises.
-    Resolution is explicit parameter > communicator default > ``"native"``,
-    checked before launch."""
+    default; ``"xla"`` is its alias), ``"ring"`` (alias ``"pallas"``: the
+    ring kernels) or any backend registered via
+    :func:`repro_torch.core.transports.register_transport`.  Resolution is
+    explicit parameter > communicator default > ``"native"``, checked
+    before launch."""
     return _mk(ParamKind.TRANSPORT, name)
 
 

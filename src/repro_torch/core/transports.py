@@ -1,21 +1,34 @@
 """Transport registry: interchangeable collective backends (DESIGN.md §7).
 
-A :class:`Transport` supplies the data-movement primitives the op-spec
-lowerings are written against.  The engine resolves it per call:
-``transport("name")`` parameter > communicator default > ``"native"``.
+A :class:`Transport` supplies the four data-movement primitives the
+op-spec lowerings are written against:
 
-Backends ported so far:
+* ``all_gather``      — gather one chunk per rank,
+* ``all_to_all``      — dense personalized exchange of (p, ...) buckets,
+* ``reduce_scatter_sum`` / ``allreduce_sum`` — the sum reductions.
+
+The engine resolves it per call: ``transport("name")`` parameter >
+communicator default > ``"native"``.  Every primitive honours the
+communicator's group scope (``comm.groups``).
+
+Every primitive is one :class:`torch.autograd.Function` whose ``vmap``
+staticmethod sees the whole ``(p, ...)`` tensor of the emulated ranks
+(:mod:`repro_torch.core.spmd`) and computes every rank's result from it.
+
+Backends:
 
 * ``native`` (alias ``xla``, so the JAX package's call sites and test
   parametrizations port verbatim) — torch ops over the stacked rank
-  dimension.  Each primitive is a :class:`torch.autograd.Function` whose
-  ``vmap`` staticmethod sees the whole ``(p, ...)`` tensor of the emulated
-  ranks (:mod:`repro_torch.core.spmd`) and computes every rank's result
-  from it.  Reductions fold in rank order, so sums match the NumPy oracle
-  bit for bit.
-
-The ring backend (``ring``, alias ``pallas``) rides on the ring kernels
-and comes with slice 2 (ROADMAP A1, kernels B1-B3); naming it raises.
+  dimension.  Reductions fold in rank order, so sums match the NumPy
+  oracle bit for bit.
+* ``ring`` (alias ``pallas``) — the ring kernels of
+  :mod:`repro_torch.kernels.collectives`: a CUDA tensor goes to the CUDA
+  kernel, a CPU tensor to its plain version.  Reductions fold in the ring
+  order (chunk r sums sources r+1, ..., r), so sums are bitwise equal to
+  ``native`` whenever the payload sums exactly, and data movement always
+  is.  A ``split_by(block=g)`` communicator's groups are contiguous, so
+  the rule views ``(p, ...)`` as ``p/g`` independent rings of length
+  ``g`` and runs one kernel over the batch.
 """
 from __future__ import annotations
 
@@ -23,12 +36,14 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ..kernels.collectives import ops as ring_ops
 from .errors import KampingError
 from .spmd import bound_axis
 
 __all__ = [
     "Transport",
     "NativeTransport",
+    "RingTransport",
     "register_transport",
     "get_transport",
     "available_transports",
@@ -36,12 +51,6 @@ __all__ = [
 ]
 
 _FOLDS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
-
-_UNPORTED = {
-    "ring": "the ring transport (ring kernels B1-B3) is not ported yet: "
-            "ROADMAP A1, slice 2",
-}
-_UNPORTED["pallas"] = _UNPORTED["ring"]
 
 
 def _stacked(info, in_dim, x):
@@ -51,127 +60,243 @@ def _stacked(info, in_dim, x):
     return x.movedim(in_dim, 0)
 
 
-def _group_rows(X, members):
-    """(p, g, ...) rows of each rank's group; ``members`` is the static
-    (p, g) member table, or None for the flat communicator."""
-    if members is None:
-        p = X.shape[0]
-        return X.unsqueeze(0).expand((p,) + tuple(X.shape))
-    idx = torch.as_tensor(members, device=X.device)
-    return X[idx]
+class _Primitive(torch.autograd.Function):
+    """One collective over the stacked rank dimension: ``rule`` maps the
+    ``(p, ...)`` stack of every rank's input to the ``(p, ...)`` stack of
+    their results.
 
-
-class _StackedReduce(torch.autograd.Function):
-    """allreduce over the rank dimension: left fold in group-rank order."""
+    ``index`` is the rank index of the bound axis, batched on every rank:
+    it makes the ``vmap`` rule run even when ``x`` is the same on every
+    rank (unbatched), which torch would otherwise hand to ``forward``.
+    ``adjoint`` is the rule of the gradient, or the collective's name when
+    its gradient is not ported yet.
+    """
 
     @staticmethod
-    def forward(x, kind, members):
+    def forward(x, index, rule, adjoint):
         raise KampingError("collective called outside an spmd region")
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.kind, ctx.members = inputs[1], inputs[2]
+        ctx.save_for_backward(inputs[1])
+        ctx.adjoint = inputs[3]
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.kind != "sum":
+        if not callable(ctx.adjoint):
             raise NotImplementedError(
-                f"gradient of a {ctx.kind} allreduce is not ported yet "
-                "(ROADMAP A2, slice 2)"
+                f"gradient of {ctx.adjoint} is not ported yet (ROADMAP A2, "
+                "slice 2b)"
             )
-        return _StackedReduce.apply(g, "sum", ctx.members), None, None
+        (index,) = ctx.saved_tensors
+        return _Primitive.apply(g, index, ctx.adjoint, ctx.adjoint), None, \
+            None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, kind, members):
-        X = _stacked(info, in_dims[0], x)
-        fn = _FOLDS[kind]
-        if members is None:
-            acc = X[0]
-            for j in range(1, X.shape[0]):
-                acc = fn(acc, X[j])
-            return acc.unsqueeze(0).expand_as(X).contiguous(), 0
-        rows = _group_rows(X, members)
-        acc = rows[:, 0]
-        for j in range(1, rows.shape[1]):
-            acc = fn(acc, rows[:, j])
-        return acc, 0
+    def vmap(info, in_dims, x, index, rule, adjoint):
+        return rule(_stacked(info, in_dims[0], x)), 0
 
 
-class _StackedGather(torch.autograd.Function):
-    """allgather over the rank dimension (group-scoped by ``members``)."""
+def _apply(comm, x, rule, name, adjoint=None):
+    """Run ``rule`` over the stacked ranks of ``comm``'s bound axis."""
+    index = bound_axis(comm.axis).index
+    x = torch.as_tensor(x, device=index.device)
+    return _Primitive.apply(x, index, rule,
+                            adjoint if adjoint is not None else name)
 
-    @staticmethod
-    def forward(x, tiled, members):
-        raise KampingError("collective called outside an spmd region")
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
+# --------------------------------------------------------------------------
+# Static group tables of the stacked layout
+# --------------------------------------------------------------------------
+def _tables(comm):
+    """The static group tables of a split communicator, None when flat."""
+    return None if comm.groups is None else comm._group_tables()
 
-    @staticmethod
-    def backward(ctx, g):
-        raise NotImplementedError(
-            "gradient of allgather is not ported yet (ROADMAP A2, slice 2)"
-        )
 
-    @staticmethod
-    def vmap(info, in_dims, x, tiled, members):
-        X = _stacked(info, in_dims[0], x)
-        rows = _group_rows(X, members)  # (p, g, ...)
-        if tiled:
-            rows = rows.reshape(
-                (rows.shape[0], rows.shape[1] * rows.shape[2])
-                + tuple(rows.shape[3:])
-            )
-        return rows.contiguous(), 0
+def _gather_rows(X, tables):
+    """(P, g, ...): row ``[w, j]`` is group-rank ``j``'s input of rank
+    ``w``'s group."""
+    if tables is None:
+        return X.unsqueeze(0).expand((X.shape[0],) + tuple(X.shape))
+    return X[torch.as_tensor(tables.members, device=X.device)]
+
+
+def _exchange_rows(X, tables):
+    """(P, g, ...) personalized exchange: ``[w, j]`` is what group-rank
+    ``j`` put in its bucket for rank ``w``."""
+    if tables is None:
+        return X.transpose(0, 1).contiguous()
+    src = torch.as_tensor(tables.members, device=X.device)
+    slot = torch.as_tensor(tables.group_rank, device=X.device)[:, None]
+    return X[src, slot.expand_as(src)]
+
+
+def _fold_rows(rows, fn):
+    """Left fold over dim 1 of (P, g, ...) rows, in group-rank order."""
+    acc = rows[:, 0]
+    for j in range(1, rows.shape[1]):
+        acc = fn(acc, rows[:, j])
+    return acc
 
 
 class Transport:
     """Abstract collective backend.  Every primitive takes the
-    communicator first and honours its group scope (``comm.groups``)."""
+    communicator first and honours its group scope (``comm.groups``):
+    ``comm.size()`` is already the group size."""
 
     name: str = "abstract"
 
     def all_gather(self, comm, x, *, tiled: bool = True):
+        """Gather ``x`` from every rank.  ``tiled=True`` concatenates along
+        axis 0; ``tiled=False`` stacks a new leading rank axis."""
+        raise NotImplementedError
+
+    def all_to_all(self, comm, x):
+        """Dense personalized exchange: (p, ...) buckets by destination ->
+        (p, ...) buckets by source."""
+        raise NotImplementedError
+
+    def reduce_scatter_sum(self, comm, x):
+        """Sum-reduce (p, chunk...) contributions; return this rank's
+        reduced chunk."""
         raise NotImplementedError
 
     def allreduce_sum(self, comm, x):
-        raise NotImplementedError
-
-    def allreduce_max(self, comm, x):
-        raise NotImplementedError
-
-    def allreduce_min(self, comm, x):
+        """Sum-reduce ``x`` over the communicator; same value on all
+        ranks."""
         raise NotImplementedError
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"<transport {self.name}>"
 
 
+def _tile(out, tiled):
+    """A rank's ``(g, d0, ...)`` gather as ``(g*d0, ...)`` when tiled."""
+    return out.flatten(0, 1) if tiled and out.dim() >= 2 else out
+
+
 class NativeTransport(Transport):
-    """Torch ops over the stacked rank dimension (see module docstring)."""
+    """Torch ops over the stacked rank dimension (see module docstring).
+
+    Besides the four primitives it provides the helpers every transport's
+    lowerings share: the max/min folds and the static permutation."""
 
     name = "native"
 
-    @staticmethod
-    def _members(comm):
-        bound_axis(comm.axis)
-        if comm.groups is None:
-            return None
-        return tuple(tuple(int(v) for v in row)
-                     for row in comm._group_tables().members)
-
     def all_gather(self, comm, x, *, tiled: bool = True):
-        return _StackedGather.apply(x, bool(tiled), self._members(comm))
+        tables = _tables(comm)
+        out = _apply(comm, x, lambda X: _gather_rows(X, tables).contiguous(),
+                     "allgather")
+        return _tile(out, tiled)
+
+    def all_to_all(self, comm, x):
+        tables = _tables(comm)
+        return _apply(comm, x, lambda X: _exchange_rows(X, tables),
+                      "alltoall")
+
+    def reduce_scatter_sum(self, comm, x):
+        tables = _tables(comm)
+        return _apply(
+            comm, x,
+            lambda X: _fold_rows(_exchange_rows(X, tables), torch.add),
+            "reduce_scatter",
+        )
+
+    def _fold(self, comm, x, kind):
+        tables = _tables(comm)
+        fn = _FOLDS[kind]
+
+        def rule(X):
+            if tables is None:
+                acc = _fold_rows(X.unsqueeze(0), fn)[0]
+                return acc.unsqueeze(0).expand_as(X).contiguous()
+            return _fold_rows(_gather_rows(X, tables), fn)
+
+        # The sum allreduce is its own adjoint: d/dx_r of sum_q f(sum_j x_j)
+        # is the allreduce of the per-rank cotangents.
+        return _apply(comm, x, rule, f"a {kind} allreduce",
+                      adjoint=rule if kind == "sum" else None)
 
     def allreduce_sum(self, comm, x):
-        return _StackedReduce.apply(x, "sum", self._members(comm))
+        return self._fold(comm, x, "sum")
 
     def allreduce_max(self, comm, x):
-        return _StackedReduce.apply(x, "max", self._members(comm))
+        return self._fold(comm, x, "max")
 
     def allreduce_min(self, comm, x):
-        return _StackedReduce.apply(x, "min", self._members(comm))
+        return self._fold(comm, x, "min")
+
+    def ppermute(self, comm, x, perm):
+        """``out[dst] = x[src]`` for each communicator-relative pair (per
+        group on a split communicator); ranks no pair reaches get zeros."""
+        if comm.groups is None:
+            pairs = [(int(s), int(d)) for s, d in perm]
+        else:
+            pairs = [(grp[int(s)], grp[int(d)]) for grp in comm.groups
+                     for s, d in perm]
+        src = [s for s, _ in pairs]
+        dst = [d for _, d in pairs]
+
+        def rule(X):
+            out = torch.zeros_like(X)
+            if pairs:
+                out[torch.as_tensor(dst, device=X.device)] = \
+                    X[torch.as_tensor(src, device=X.device)]
+            return out
+
+        return _apply(comm, x, rule, "send_recv")
+
+
+class RingTransport(Transport):
+    """The ring kernels B1, B2, B4 and their composition B3 (see module
+    docstring).  Single-axis communicators only: the ring order is defined
+    over one axis."""
+
+    name = "ring"
+
+    def _rings(self, comm) -> int:
+        """Number of independent rings in the stacked layout."""
+        if isinstance(comm.axis, (tuple, list)):
+            raise KampingError(
+                "transport('ring') requires a single-axis communicator (the "
+                f"ring order is defined over one axis); got axes "
+                f"{comm.axis!r}. Use transport('native')."
+            )
+        P, g = comm.world_size(), comm.size()
+        if comm.groups is not None and comm.groups != tuple(
+            tuple(range(b * g, (b + 1) * g)) for b in range(P // g)
+        ):
+            raise NotImplementedError(
+                "transport('ring') runs contiguous rank blocks "
+                "(split_by(block=)) only; other groups are not ported yet "
+                "(ROADMAP A4)"
+            )
+        return P // g
+
+    def _run(self, comm, x, kernel, name):
+        rings = self._rings(comm)
+        # A value that is the same on every rank arrives unbatched and
+        # _stacked expands it with stride 0; the kernels read a dense
+        # stack, so .contiguous() materialises it — a real copy of p times
+        # the payload (2.48 GB per rank for a qwen1.5-0.5B gradient).  For
+        # a batched value it is free.
+        return _apply(comm, x,
+                      lambda X: kernel(X.contiguous(), rings=rings),
+                      f"{name} (ring)")
+
+    def all_gather(self, comm, x, *, tiled: bool = True):
+        return _tile(self._run(comm, x, ring_ops.ring_allgather,
+                               "allgather"), tiled)
+
+    def all_to_all(self, comm, x):
+        return self._run(comm, x, ring_ops.ring_alltoall, "alltoall")
+
+    def reduce_scatter_sum(self, comm, x):
+        return self._run(comm, x, ring_ops.ring_reduce_scatter,
+                         "reduce_scatter")
+
+    def allreduce_sum(self, comm, x):
+        return self._run(comm, x, ring_ops.ring_allreduce, "a sum allreduce")
 
 
 # --------------------------------------------------------------------------
@@ -199,8 +324,6 @@ def get_transport(name: Union[str, Transport]) -> Transport:
     """Lookup with a readable diagnostic (paper §III-G)."""
     if isinstance(name, Transport):
         return name
-    if name in _UNPORTED:
-        raise NotImplementedError(f"transport {name!r}: {_UNPORTED[name]}")
     t = _TRANSPORTS.get(name)
     if t is None:
         raise KampingError(
@@ -220,5 +343,7 @@ def resolve_transport(comm, override=None) -> Transport:
     return get_transport(name)
 
 
-_NATIVE = register_transport(NativeTransport())
-register_transport(_NATIVE, name="xla")
+NATIVE = register_transport(NativeTransport())
+register_transport(NATIVE, name="xla")
+_RING = register_transport(RingTransport())
+register_transport(_RING, name="pallas")

@@ -106,11 +106,11 @@ def dense(p, x):
     return F.linear(x, p["w"], p.get("b"))
 
 
-def init_mlp(generator, d_model, d_ff, dtype="bfloat16"):
+def init_mlp(generator, d_model, d_ff, dtype="bfloat16", device=None):
     return {
-        "wi": init_dense(generator, d_model, d_ff, dtype=dtype),
-        "wg": init_dense(generator, d_model, d_ff, dtype=dtype),
-        "wo": init_dense(generator, d_ff, d_model, dtype=dtype),
+        "wi": init_dense(generator, d_model, d_ff, dtype=dtype, device=device),
+        "wg": init_dense(generator, d_model, d_ff, dtype=dtype, device=device),
+        "wo": init_dense(generator, d_ff, d_model, dtype=dtype, device=device),
     }
 
 
@@ -170,14 +170,13 @@ def chunked_attention(q, k, v, *, q_offset=0, causal=True,
 
 
 # -- full attention layer ------------------------------------------------------
-def init_attention(generator, cfg):
-    d = cfg.d_model
-    dt = cfg.param_dtype
+def init_attention(generator, cfg, device=None):
+    d, dt, qb = cfg.d_model, cfg.param_dtype, cfg.qkv_bias
     return {
-        "wq": init_dense(generator, d, cfg.q_dim, bias=cfg.qkv_bias, dtype=dt),
-        "wk": init_dense(generator, d, cfg.kv_dim, bias=cfg.qkv_bias, dtype=dt),
-        "wv": init_dense(generator, d, cfg.kv_dim, bias=cfg.qkv_bias, dtype=dt),
-        "wo": init_dense(generator, cfg.q_dim, d, dtype=dt),
+        "wq": init_dense(generator, d, cfg.q_dim, qb, dt, device=device),
+        "wk": init_dense(generator, d, cfg.kv_dim, qb, dt, device=device),
+        "wv": init_dense(generator, d, cfg.kv_dim, qb, dt, device=device),
+        "wo": init_dense(generator, cfg.q_dim, d, dtype=dt, device=device),
     }
 
 

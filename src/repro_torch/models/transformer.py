@@ -80,15 +80,15 @@ def _attn_window(cfg, kind):
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
-def _init_block(generator, kind, cfg):
+def _init_block(generator, kind, cfg, device):
     d = cfg.d_model
-    dev = generator.device
-    zero = lambda: torch.zeros((d,), dtype=torch.float32, device=dev)
+    zero = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
     return {
         "ln1": zero(),
-        "attn": init_attention(generator, cfg),
+        "attn": init_attention(generator, cfg, device=device),
         "ln2": zero(),
-        "mlp": init_mlp(generator, d, cfg.d_ff, dtype=cfg.param_dtype),
+        "mlp": init_mlp(generator, d, cfg.d_ff, dtype=cfg.param_dtype,
+                        device=device),
     }
 
 
@@ -99,13 +99,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
     ``device=None`` means CUDA (and raises without it).  Without a
     generator one seeded with 0 is made on the device.  The numbers differ
     from the JAX package's for the same seed; tests carry JAX weights over
-    with ``repro_torch.convert`` instead.
+    with ``repro_torch.convert`` instead.  On the ``meta`` device the
+    parameters have shapes and dtypes but no data (a CPU generator, or
+    none, is taken): counting a model's parameters allocates nothing.
     """
     pattern = block_pattern(cfg)
     device = resolve_device(device)
+    gen_type = "cpu" if device.type == "meta" else device.type
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    if generator.device.type != device.type:
+        generator = torch.Generator(device=gen_type).manual_seed(0)
+    if generator.device.type != gen_type:
         raise KampingError(
             f"init_params: generator on {generator.device}, device {device}"
         )
@@ -117,7 +120,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
     params = {
         "embed": (embed * 0.02).to(dt),
         "layers": [
-            _init_block(generator, pattern[i % len(pattern)], cfg)
+            _init_block(generator, pattern[i % len(pattern)], cfg, device)
             for i in range(cfg.num_layers)
         ],
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
@@ -125,7 +128,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(generator, cfg.d_model, cfg.vocab_size,
-                                       dtype=cfg.param_dtype)
+                                       dtype=cfg.param_dtype, device=device)
     return params
 
 

@@ -174,11 +174,13 @@ def test_unknown_parameter_is_a_kamping_error():
 
 def test_unported_features_refuse_with_roadmap_item():
     x = torch.zeros(2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tc.spmd(lambda v: tc.Communicator("x").allgather(
-            tc.send_buf(v), tc.transport("ring")), x, axis_name="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tc.Communicator("x", transport="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tc.Communicator(("x", "y"))
+    # the ring transport (and its pallas alias) is ported: no refusal
+    for name in ("ring", "pallas"):
+        out = tc.spmd(lambda v: tc.Communicator("x", transport=name)
+                      .allgather(tc.send_buf(v)), x + 1, axis_name="x")
+        assert out.shape == (2, 2) and (out == 1).all()
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         tc.spmd(lambda v: tc.Communicator("x").allreduce(
             tc.send_buf(v), tc.op(operator.add), tc.compression("int8-ef")),
