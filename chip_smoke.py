@@ -22,8 +22,10 @@ Phases (any failure raises and the script exits non-zero):
    allreduce composition (B3) and the alltoall (B4) against their plain
    versions, bitwise (``torch.equal``), at p in {1, 2, 3, 4, 8}, m in
    {1, 7, 4099, 2^20}, in all six dtypes (integers over their full range,
-   so sums wrap), and on a batched ring (p = 8 in blocks of 4); card
-   times at the main paths' shapes beside the bytes bound, the plain
+   so sums wrap), and on a batched ring (p = 8 in blocks of 4); then, at
+   the main paths' shapes (B1 and B2 at the allreduce's p = 4 blocks of
+   154,892,544 fp32, B4 at the sort's (8, 8, 10,485,760) int32 buckets),
+   bitwise once more and card times beside the bytes bound, the plain
    version and one PyTorch call as a yardstick.
 5. allreduce — ``Communicator("data", transport="ring").allreduce`` of a
    gradient-sized fp32 payload (qwen1.5-0.5B's parameter count, from the
@@ -41,9 +43,11 @@ Phases (any failure raises and the script exits non-zero):
    prefill logits through the kernel match the plain-version path, and a
    small fp32 model on the card matches the same model on the CPU.
 
-Each path's launch counters are set to 0 just before it runs and read
-just after.  The last lines are the card's name and power limit, one JSON
-object with the kernel table, and ``{"ok": true, "device": {...}}``.
+Every launch counter is set to 0 just before each main path (allreduce,
+sort, serve) runs and read just after.  The last lines are the card's
+name and power limit, one JSON object with the kernel table (``launches``
+is the sum over the paths, ``launches_by_path`` each path's own count),
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -326,12 +330,13 @@ def phase_serve():
     for r in reqs:
         engine.submit(r)
 
-    flash_ops.flash_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     done = engine.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_ops.flash_attention.launches
+    counts = read_counts()
+    launches = counts["flash_attention"]
 
     if engine.truncated or len(done) != len(reqs):
         raise AssertionError(f"served {len(done)}/{len(reqs)} requests")
@@ -343,6 +348,8 @@ def phase_serve():
     if launches != prefills * cfg.num_layers or launches == 0:
         raise AssertionError(f"flash launches {launches} != prefills "
                              f"{prefills} x {cfg.num_layers} layers")
+    if any(counts[name] for name in RING_REPLACES):
+        raise AssertionError(f"serve launched a ring kernel: {counts}")
     decode_tokens = engine.counters["decode_tokens"]
     ph = engine.phase_seconds
     print(f"  served {len(done)}/{len(reqs)} requests (prompts "
@@ -394,7 +401,7 @@ def phase_serve():
           f"{float(want.abs().max()):.3f}")
     if not rel <= LOGIT_REL_TOL:
         raise AssertionError(f"prefill logits disagree: rel L2 {rel}")
-    return launches
+    return counts
 
 
 def _leaves(tree):
@@ -411,13 +418,19 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 # ring collectives
 # ---------------------------------------------------------------------------
-def ring_counts():
-    return {name: getattr(ring_ops, name).launches for name in RING_REPLACES}
+def _counters():
+    return {"flash_attention": flash_ops.flash_attention,
+            **{name: getattr(ring_ops, name) for name in RING_REPLACES}}
 
 
-def zero_ring_counts():
-    for name in RING_REPLACES:
-        getattr(ring_ops, name).launches = 0
+def read_counts():
+    """Every kernel wrapper's launch count."""
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def ring_input(shape, dtype, gen):
@@ -432,13 +445,18 @@ def ring_input(shape, dtype, gen):
 
 
 def bitwise(got, want):
-    """(equal, max_abs_err) of a kernel result against its plain version."""
+    """(equal, max_abs_err) of a kernel result against its plain version.
+    The error is taken 2^26 elements at a time, so a result of billions of
+    elements needs no float64 copy of itself."""
     torch.cuda.synchronize()
-    same = got.shape == want.shape and got.dtype == want.dtype and \
-        torch.equal(got, want)
-    if got.numel() == 0:
-        return same, 0.0
-    err = float((got.double() - want.double()).abs().max())
+    if got.shape != want.shape:
+        return False, float("inf")
+    same = got.dtype == want.dtype and torch.equal(got, want)
+    g, w = got.reshape(-1), want.reshape(-1)
+    err, step = 0.0, 1 << 26
+    for lo in range(0, g.numel(), step):
+        err = max(err, float((g[lo:lo + step].double()
+                              - w[lo:lo + step].double()).abs().max()))
     return same, err
 
 
@@ -507,14 +525,23 @@ def phase_ring_kernels():
     del xs
     torch.cuda.empty_cache()
     for name, row in rows.items():
-        row["max_abs_err"] = err[name]
+        row["max_abs_err"] = max(err[name], row["max_abs_err"])
     return rows
 
 
 def time_ring(name, x, p, m, library):
+    """Hold the kernel against its plain version at the main path's shape,
+    bitwise, then time both and the library call."""
     fn = getattr(ring_ops, name)
     kern = lambda: fn(x)
     plain = lambda: fn(x, force_ref=True)
+    same, err = bitwise(kern(), plain())
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"p={p} m={m}: max_abs_err={err}")
+    print(f"  {name} p={p} m={m} {str(x.dtype)[6:]}: bitwise equal to its "
+          f"plain version (max_abs_err {err})")
     ms = card_ms(kern, 3, replays=3)
     plain_ms = card_ms(plain, 3, replays=3)
     lib_ms = card_ms(library, 3, replays=3)
@@ -525,8 +552,8 @@ def time_ring(name, x, p, m, library):
           f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms (bytes, "
           f"{nbytes / 1e9:.3f} GB) -> {nbytes / ms / 1e6:.1f} GB/s, "
           f"{bound_ms / ms:.1%} of the bound")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by="bytes")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by="bytes")
 
 
 def allreduce_elements():
@@ -554,15 +581,15 @@ def phase_allreduce():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    zero_ring_counts()
+    zero_counts()
     t0 = time.perf_counter()
     out = reduce("ring")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ring_counts()
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"ring_reduce_scatter": 1, "ring_allgather": 1,
-                    "ring_alltoall": 0}:
+    if launches != {"flash_attention": 0, "ring_reduce_scatter": 1,
+                    "ring_allgather": 1, "ring_alltoall": 0}:
         raise AssertionError(f"allreduce launches {launches}: expected 1 B1 "
                              "and 1 B2")
     if out.shape != g.shape or out.dtype != g.dtype:
@@ -611,15 +638,15 @@ def phase_sort():
                          dtype=torch.int32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_ring_counts()
+    zero_counts()
     t0 = time.perf_counter()
     merged, valid = sort.sample_sort(data, gen, transport="ring")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ring_counts()
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"ring_reduce_scatter": 0, "ring_allgather": 1,
-                    "ring_alltoall": 2}:
+    if launches != {"flash_attention": 0, "ring_reduce_scatter": 0,
+                    "ring_allgather": 1, "ring_alltoall": 2}:
         raise AssertionError(f"sort launches {launches}: expected 1 B2 and "
                              "2 B4")
     out = sort.gather_sorted(merged, valid)
@@ -664,13 +691,22 @@ def main() -> int:
     max_err, rows = phase_kernels()
     print("[ring-kernels]")
     ring_rows = phase_ring_kernels()
+    # launches of each main path, every counter set to 0 just before it
+    # ran and read just after
+    paths = {}
     print("[allreduce]")
-    ar_launches = phase_allreduce()
+    paths["allreduce"] = phase_allreduce()
     print("[sort]")
-    sort_launches = phase_sort()
+    paths["sort"] = phase_sort()
     print("[serve]")
     phase_reference()
-    launches = phase_serve()
+    paths["serve"] = phase_serve()
+
+    def launches(name):
+        """The total over the paths and each path's own count."""
+        by_path = {path: c[name] for path, c in paths.items()}
+        return dict(launches=sum(by_path.values()),
+                    launches_by_path=by_path)
 
     main_row = rows[-1]  # the largest serve shape
     table = {"kernels": [{
@@ -679,7 +715,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:80",
-        "launches": launches,
+        **launches("flash_attention"),
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -688,12 +724,9 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
     }]}
     for name, row in ring_rows.items():
-        # launches: the allreduce's and the sort's runs, each counted from
-        # 0 just before it ran
         table["kernels"].append(dict(
             name=name, route="cuda", source=RING_SOURCE,
-            replaces=RING_REPLACES[name],
-            launches=ar_launches[name] + sort_launches[name], **row))
+            replaces=RING_REPLACES[name], **launches(name), **row))
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ from . import groups as _groups
 from .errors import KampingError
 from .opspec import Lowering, OpSpec, attach_ops, is_static, static_int
 from .params import ParamKind as K
-from .spmd import bound_axis
+from .spmd import bound_axis, rank_tensor
 from .transports import NATIVE, get_transport, resolve_transport
 
 __all__ = ["Communicator", "CORE_SPECS"]
@@ -177,6 +177,11 @@ class Communicator:
     def _pmin(self, x):
         return NATIVE.allreduce_min(self, x)
 
+    def _tensor(self, x):
+        """``x`` as a tensor on the ranks' device; a tensor on another
+        device raises (:func:`~repro_torch.core.spmd.rank_tensor`)."""
+        return rank_tensor(x, self.global_rank().device, "kamping")
+
     def _ppermute(self, x, perm):
         """ppermute with communicator-relative ``perm``."""
         return NATIVE.ppermute(self, x, perm)
@@ -185,7 +190,7 @@ class Communicator:
     def _reduce_impl(self, x, op_param, transport=None):
         t = transport if transport is not None else resolve_transport(self)
         fn = op_param.value
-        x = torch.as_tensor(x)
+        x = self._tensor(x)
         if _try_hash_lookup(fn, _SUM_FNS):
             return t.allreduce_sum(self, x)
         if _try_hash_lookup(fn, _MAX_FNS):
@@ -221,7 +226,7 @@ class Communicator:
 
         if isinstance(x, Serialized):
             return deserialize_like(x, self._bcast_value(x.buffer, r))
-        x = torch.as_tensor(x, device=self.global_rank().device)
+        x = self._tensor(x)
         mask = self.rank() == r
         if x.dtype == torch.bool:
             return self._pmax((x & mask).to(torch.int32)).to(torch.bool)
@@ -237,7 +242,7 @@ def _lower_allgather(low: Lowering):
     if low.has(K.SEND_RECV_BUF):
         # Simplified MPI_IN_PLACE (paper §III-G): one slot per rank, this
         # rank's slot at index `rank`.
-        x = torch.as_tensor(low.value(K.SEND_RECV_BUF))
+        x = low.tensor(low.value(K.SEND_RECV_BUF))
         p = low.p
         if x.shape[0] != p:
             raise KampingError(
@@ -261,7 +266,7 @@ def _lower_gatherv(low: Lowering):
       displacement ``i*cap``); the counts gather is launched only when
       ``recv_counts_out()`` asked for it (paper Fig. 2's exchange).
     """
-    x = torch.as_tensor(low.value(K.SEND_BUF))
+    x = low.tensor(low.value(K.SEND_BUF))
     cap, p = x.shape[0], low.p
     n = low.value(K.SEND_COUNT, cap)
 
@@ -305,9 +310,9 @@ def _lower_gatherv(low: Lowering):
             buf = x[:0]
         displs = np.concatenate([[0], np.cumsum(counts)[:-1]])
         low.emit("recv_counts",
-                 lambda: torch.as_tensor(counts, dtype=torch.int32))
+                 lambda: low.tensor(counts, torch.int32))
         low.emit("recv_displs",
-                 lambda: torch.as_tensor(displs, dtype=torch.int32))
+                 lambda: low.tensor(displs, torch.int32))
         return buf
 
     n_static = static_int(n)
@@ -316,18 +321,21 @@ def _lower_gatherv(low: Lowering):
         # inferred counts/displs are constants.
         buf = low.all_gather(x[:n_static])
         low.emit("recv_counts",
-                 lambda: torch.full((p,), n_static, dtype=torch.int32))
+                 lambda: torch.full((p,), n_static, dtype=torch.int32,
+                                    device=low.device))
         low.emit("recv_displs",
-                 lambda: torch.arange(p, dtype=torch.int32) * n_static)
+                 lambda: torch.arange(p, dtype=torch.int32,
+                                      device=low.device) * n_static)
         return buf
 
     buf = low.all_gather(x)  # padded layout
     low.emit(
         "recv_counts",
-        lambda: low.all_gather(torch.as_tensor(n, dtype=torch.int32),
+        lambda: low.all_gather(low.tensor(n, torch.int32),
                                tiled=False),
     )
-    low.emit("recv_displs", lambda: torch.arange(p, dtype=torch.int32) * cap)
+    low.emit("recv_displs", lambda: torch.arange(
+        p, dtype=torch.int32, device=low.device) * cap)
     return buf
 
 
@@ -336,7 +344,7 @@ def _lower_gather(low: Lowering):
 
 
 def _lower_alltoall(low: Lowering):
-    x = torch.as_tensor(low.value(K.SEND_BUF))
+    x = low.tensor(low.value(K.SEND_BUF))
     p = low.p
     if x.dim() < 1 or x.shape[0] != p:
         raise KampingError(
@@ -347,12 +355,14 @@ def _lower_alltoall(low: Lowering):
 
 
 def _lower_alltoallv(low: Lowering):
-    x = torch.as_tensor(low.value(K.SEND_BUF))
+    x = low.tensor(low.value(K.SEND_BUF))
     buf = low.alltoall(x)
     low.emit("recv_displs",
-             lambda: torch.arange(low.p, dtype=torch.int32) * buf.shape[1])
+             lambda: torch.arange(low.p, dtype=torch.int32,
+                                  device=low.device) * buf.shape[1])
     low.emit("send_displs",
-             lambda: torch.arange(low.p, dtype=torch.int32) * x.shape[1])
+             lambda: torch.arange(low.p, dtype=torch.int32,
+                                  device=low.device) * x.shape[1])
     if low.value(K.SEND_COUNTS) is not None:  # supplied, not *_out()
         def _recv_counts():
             sc = low.value(K.SEND_COUNTS)
@@ -360,10 +370,8 @@ def _lower_alltoallv(low: Lowering):
                 # Zero-overhead inference: a static send_counts vector is
                 # the same constant on every rank, so rank j's count
                 # toward me is sc[rank] — a local lookup, *no* launch.
-                scv = torch.as_tensor(np.asarray(sc).reshape(-1),
-                                      dtype=torch.int32)
-                rank = low.rank()
-                return _at(scv.to(rank.device), rank).expand(low.p)
+                scv = low.tensor(np.asarray(sc).reshape(-1), torch.int32)
+                return _at(scv, low.rank()).expand(low.p)
             # Per-rank counts: the counts transpose (the paper's
             # default-parameter communication) on the op's own transport.
             return low.counts_transpose(sc)
@@ -382,7 +390,7 @@ def _lower_reduce_scatter(low: Lowering):
     rank's contribution to rank j; each rank receives the op-reduction of
     its slot over all ranks.  Sums go to the transport's reduce-scatter;
     other functors reduce then extract."""
-    x = torch.as_tensor(low.value(K.SEND_BUF, low.value(K.SEND_RECV_BUF)))
+    x = low.tensor(low.value(K.SEND_BUF, low.value(K.SEND_RECV_BUF)))
     p = low.p
     if x.dim() < 1 or x.shape[0] != p:
         raise KampingError(
@@ -397,7 +405,7 @@ def _lower_reduce_scatter(low: Lowering):
 
 
 def _lower_scan(low: Lowering, inclusive: bool):
-    x = torch.as_tensor(low.value(K.SEND_BUF))
+    x = low.tensor(low.value(K.SEND_BUF))
     fn = low.pack[K.OP].value
     gathered = low.all_gather(x, tiled=False)
     if _try_hash_lookup(fn, _SUM_FNS):
@@ -446,10 +454,9 @@ def _lower_scatterv(low: Lowering):
             # Zero-overhead path: static counts are the same constant on
             # all ranks (MPI: counts significant only at root), so the
             # lookup is local — nothing launched.
-            scb = torch.as_tensor(sc, dtype=torch.int32,
-                                  device=low.rank().device)
+            scb = low.tensor(sc, torch.int32)
         else:
-            scb = comm._bcast_value(torch.as_tensor(sc, dtype=torch.int32), r)
+            scb = comm._bcast_value(low.tensor(sc, torch.int32), r)
         return _at(scb, low.rank())
 
     low.emit("recv_count", _recv_count)
@@ -457,7 +464,8 @@ def _lower_scatterv(low: Lowering):
 
 
 def _lower_barrier(low: Lowering):
-    return low.comm._psum(torch.zeros((), dtype=torch.int32))
+    return low.comm._psum(torch.zeros((), dtype=torch.int32,
+                                      device=low.device))
 
 
 def _lower_send_recv(low: Lowering):

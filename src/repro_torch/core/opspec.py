@@ -42,6 +42,7 @@ from .nonblocking import NonBlockingResult
 from .params import ParamKind as K
 from .params import collect_params
 from .result import make_result
+from .spmd import rank_tensor
 from .transports import resolve_transport
 
 __all__ = [
@@ -144,6 +145,16 @@ class Lowering:
         """Communicator-relative rank (group-relative when split)."""
         return self.comm.rank()
 
+    @property
+    def device(self) -> torch.device:
+        """The device the ranks run on."""
+        return self.comm.global_rank().device
+
+    def tensor(self, x, dtype=None):
+        """``x`` as a tensor on the ranks' device; a tensor on another
+        device raises (:func:`~repro_torch.core.spmd.rank_tensor`)."""
+        return rank_tensor(x, self.device, f"kamping.{self.spec.name}", dtype)
+
     # -- parameter access --------------------------------------------------
     def has(self, kind) -> bool:
         return kind in self.pack
@@ -185,7 +196,7 @@ class Lowering:
     def counts_transpose(self, sc):
         """recv_counts[j] = send_counts of rank j towards me (one alltoall
         on the op's own transport)."""
-        sc = torch.as_tensor(sc, dtype=torch.int32).reshape(self.p, 1)
+        sc = self.tensor(sc, torch.int32).reshape(self.p, 1)
         return self.alltoall(sc).reshape(self.p)
 
     # -- out-field machinery ------------------------------------------------
@@ -266,7 +277,7 @@ def _validate_and_resize_buckets(low: Lowering):
     x = low.value(K.SEND_BUF)
     if x is None:
         return  # in-place variant; lowering handles layout itself
-    x = torch.as_tensor(x)
+    x = low.tensor(x)
     if x.dim() < 2 or x.shape[0] != p:
         hint = f" {spec.bucket_hint}" if spec.bucket_hint else ""
         raise KampingError(
@@ -294,7 +305,7 @@ def _stage_global_count_check(low: Lowering, buf):
     """Communication-level assertion (paper §III-G): total elements sent
     == total elements received, checked over the communicator
     (group-scoped on a split communicator)."""
-    sc = torch.as_tensor(low.value(K.SEND_COUNTS), dtype=torch.int32)
+    sc = low.tensor(low.value(K.SEND_COUNTS), torch.int32)
     total_sent = low.comm._psum(sc.sum())
     total_recv = low.comm._psum(low.counts_transpose(sc).sum())
     return _poison_unless(total_sent == total_recv, buf)
@@ -314,7 +325,7 @@ def _poison_unless(ok, buf):
 def _check_counts_fit(x, counts, cap):
     """NORMAL-level assertion: counts <= capacity (overflow check).  On
     failure the buffer is poisoned instead of raising."""
-    ok = (torch.as_tensor(counts, device=x.device) <= cap).all()
+    ok = (rank_tensor(counts, x.device, "kamping: send_counts") <= cap).all()
     return _poison_unless(ok, x)
 
 

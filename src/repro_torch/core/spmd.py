@@ -20,7 +20,7 @@ import torch
 
 from .errors import KampingError
 
-__all__ = ["spmd", "bound_axis"]
+__all__ = ["spmd", "bound_axis", "rank_tensor"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +63,12 @@ def spmd(fn: Callable, *args, axis_name: str = "x"):
         )
     p = sizes.pop()
     device = args[0].device
+    others = sorted({str(a.device) for a in args if a.device != device})
+    if others:
+        raise KampingError(
+            f"spmd({axis_name!r}): every argument must be on the device of "
+            f"the first, {device}; got arguments on {others}"
+        )
 
     def body(idx, *a):
         ax = _Axis(axis_name, p, idx, _innermost_vmap_level())
@@ -91,3 +97,20 @@ def bound_axis(name) -> _Axis:
         f"unbound axis name {name!r}: collectives run inside "
         "repro_torch.core.spmd(fn, ..., axis_name=...)"
     )
+
+
+def rank_tensor(x, device, what, dtype=None):
+    """``x`` as a tensor on ``device``, the device the ranks run on.
+
+    A value that is not a tensor yet (a Python scalar, a list, a NumPy
+    array) is put there.  A tensor on another device raises: copying it
+    would quietly move ``what``'s work off the ranks' device (a CUDA
+    payload reduced on the host, say)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    if x.device != device:
+        raise KampingError(
+            f"{what}: tensor on {x.device}, but the ranks run on {device}; "
+            f"move it there before the call"
+        )
+    return x if dtype is None else x.to(dtype)

@@ -38,7 +38,7 @@ import torch
 
 from ..kernels.collectives import ops as ring_ops
 from .errors import KampingError
-from .spmd import bound_axis
+from .spmd import bound_axis, rank_tensor
 
 __all__ = [
     "Transport",
@@ -100,7 +100,7 @@ class _Primitive(torch.autograd.Function):
 def _apply(comm, x, rule, name, adjoint=None):
     """Run ``rule`` over the stacked ranks of ``comm``'s bound axis."""
     index = bound_axis(comm.axis).index
-    x = torch.as_tensor(x, device=index.device)
+    x = rank_tensor(x, index.device, name)
     return _Primitive.apply(x, index, rule,
                             adjoint if adjoint is not None else name)
 

@@ -364,3 +364,46 @@ def test_ring_on_unsupported_layouts_raises():
             return c.allreduce(tc.send_buf(v), tc.op(operator.add)).sum()
 
         tc.spmd(torch.func.grad(loss), torch.ones(2, 3), axis_name="x")
+
+
+def test_spmd_arguments_share_one_device():
+    with pytest.raises(tc.KampingError, match="device of the first"):
+        tc.spmd(lambda a, b: a + b, torch.zeros(2, 3),
+                torch.zeros(2, 3, device="meta"), axis_name="x")
+
+
+@pytest.mark.parametrize("transport", ["native", "ring"])
+@pytest.mark.parametrize("row", ["allreduce", "allgather", "alltoall",
+                                 "bcast", "reduce_scatter"])
+def test_tensor_on_another_device_raises(transport, row):
+    """A payload on another device than the ranks' is refused, never copied
+    over: the collective's work stays on the device the ranks run on."""
+    far = torch.zeros(2, 3, device="meta")
+    calls = {
+        "allreduce": lambda c: c.allreduce(tc.send_buf(far),
+                                           tc.op(operator.add)),
+        "allgather": lambda c: c.allgather(tc.send_buf(far)),
+        "alltoall": lambda c: c.alltoall(tc.send_buf(far)),
+        "bcast": lambda c: c.bcast(tc.send_recv_buf(far)),
+        "reduce_scatter": lambda c: c.reduce_scatter(tc.send_buf(far),
+                                                     tc.op(operator.add)),
+    }
+    with pytest.raises(tc.KampingError, match="tensor on meta"):
+        tc.spmd(lambda v: calls[row](tc.Communicator("x",
+                                                     transport=transport)),
+                torch.zeros(2, 1), axis_name="x")
+
+
+@pytest.mark.parametrize("transport", ["native", "ring"])
+def test_host_values_move_to_the_ranks_device(transport):
+    """Python scalars and NumPy arrays are not tensors yet: they are put on
+    the ranks' device."""
+    def body(v):
+        c = tc.Communicator("x", transport=transport)
+        return (c.allreduce(tc.send_buf(3), tc.op(operator.add)),
+                c.allgather(tc.send_buf(np.arange(2, dtype=np.int32))))
+
+    total, gathered = tc.spmd(body, torch.zeros(4, 1), axis_name="x")
+    np.testing.assert_array_equal(total.numpy(), np.full(4, 12))
+    np.testing.assert_array_equal(gathered.numpy(),
+                                  np.tile(np.arange(2), (4, 4)))
