@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. device — the card's name and power limit (nvidia-smi); TF32 off.
-2. build — nvcc builds both kernel sources from the checkout, one nvcc
-   per source, started together; each build's time and ptxas register
-   and spill lines.
+2. build — nvcc builds the three kernel sources from the checkout, one
+   nvcc per source, started together; each build's time and ptxas
+   register and spill lines.
 3. kernels — the flash-attention kernel against its plain PyTorch
    version on the card, at the serve shapes and at GQA, window, ragged
    and non-causal shapes, in fp32 (2e-5) and bf16 (3e-2, and within half
@@ -42,10 +42,25 @@ Phases (any failure raises and the script exits non-zero):
    path launched (flash attention: prefills x 24 layers).  One request's
    prefill logits through the kernel match the plain-version path, and a
    small fp32 model on the card matches the same model on the CPU.
+8. ssd-kernel — the SSD chunked-scan kernel (B6) against its plain
+   version on the card: the JAX package's kernel-test shapes in fp32, the
+   serve shapes (S = 100, 128, 256, 1024 at H = 32, P = 64, G = 1,
+   N = 128) in fp32 and bf16, one G > 1 and one B > 1 shape, and S = 1024
+   with mamba2's fast decays (exp(dt A) down to e^-20).  fp32 within
+   3e-4 (the reference's own tolerance); bf16 within half a bf16 ulp of
+   the plain version in fp32 on the same inputs, plus 3e-4.  Card times
+   at S = 128..1024 beside the plain version and the bound.
+9. serve-ssm — full-width mamba2-370m in bf16 (random weights from a
+   seeded ``torch.Generator``) answers 8 requests (prompts of 100-1024
+   tokens, 32 new tokens each) through ``ServeEngine``: exactly prefills
+   x 48 SSD-scan launches and no other kernel; the 1024-token prompt's
+   prefill logits through the kernel match the plain-version path (rel
+   L2 < 2%), and a small fp32 mamba2 on the card matches the same model
+   on the CPU within 1e-4.
 
 Every launch counter is set to 0 just before each main path (allreduce,
-sort, serve) runs and read just after.  The last lines are the card's
-name and power limit, one JSON object with the kernel table (``launches``
+sort, serve, serve_ssm) runs and read just after.  The last lines are the
+card's name and power limit, one JSON object with the kernel table (``launches``
 is the sum over the paths, ``launches_by_path`` each path's own count),
 and ``{"ok": true, "device": {...}}``.
 """
@@ -71,6 +86,7 @@ from repro_torch.core import Communicator, op, send_buf, spmd  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.collectives import ops as ring_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
@@ -99,9 +115,10 @@ BF16_FP32_ATOL = 1e-5
 PROMPT_LENS = (100, 130, 200, 260, 300, 420, 520, 600)  # buckets 128..1024
 MAX_NEW = 32
 # bf16 prefill logits, kernel path vs plain-version path: both compute in
-# fp32 and round to bf16, so an attention output differs by at most one
-# bf16 ulp (2^-8 relative) where the two fp32 sums straddle a rounding
-# boundary; 24 layers carry such flips into the logits at well under 2%.
+# fp32 and round to bf16, so an attention (or SSD scan) output differs by
+# at most one bf16 ulp (2^-8 relative) where the two fp32 sums straddle a
+# rounding boundary; qwen's 24 layers, or mamba2's 48, carry such flips
+# into the logits at well under 2%.
 LOGIT_REL_TOL = 2e-2
 
 # Ring kernels: every check is bitwise (torch.equal) against the plain
@@ -120,6 +137,30 @@ RING_REPLACES = {
     "ring_allgather": "src/repro/kernels/collectives/collectives.py:69",
     "ring_alltoall": "src/repro/kernels/collectives/collectives.py:176",
 }
+
+# SSD scan (B6): (B, S, H, P, G, N, chunk).  The JAX package's kernel-test
+# shapes (tests/test_kernels.py), then the serve shapes of mamba2-370m
+# (H = 32 heads of P = 64, one group, state N = 128, chunk 128; S = 100 is
+# one chunk of 100), a G > 1 and a B > 1 shape.
+SSD_TEST_SHAPES = [(2, 64, 4, 16, 1, 32, 16), (1, 128, 2, 32, 2, 16, 32),
+                   (1, 64, 8, 8, 1, 8, 64), (2, 96, 4, 16, 4, 16, 32)]
+SSD_SERVE_SHAPES = [(1, s, 32, 64, 1, 128, 128) for s in (100, 128, 256,
+                                                          1024)]
+SSD_MORE_SHAPES = [(1, 512, 32, 64, 4, 128, 128),   # 4 groups of 8 heads
+                   (4, 256, 32, 64, 1, 128, 128)]   # batch 4
+# mamba2's decays: A = -exp(A_log) spans -1..-16, so exp(dt A) reaches
+# e^-20 and la, summed over a chunk, thousands; the summation order of la
+# then shows in exp(la_i - la_j), which mild decays never exercise.
+SSD_FAST_DECAY_SHAPE = (1, 1024, 32, 64, 1, 128, 128)
+SSD_TIME_SHAPES = [(1, s, 32, 64, 1, 128, 128) for s in (128, 256, 512,
+                                                         1024)]
+# fp32: the reference's own tolerance (tests/test_kernels.py:71-72).  bf16:
+# the kernel computes in fp32 and rounds once, so each output lies within
+# half a bf16 ulp of the plain version in fp32, plus that 3e-4.
+SSD_TOL = 3e-4
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:69"
+SSM_PROMPT_LENS = (100, 128, 256, 384, 512, 640, 896, 1024)
 
 
 def nvidia_smi() -> str:
@@ -348,8 +389,8 @@ def phase_serve():
     if launches != prefills * cfg.num_layers or launches == 0:
         raise AssertionError(f"flash launches {launches} != prefills "
                              f"{prefills} x {cfg.num_layers} layers")
-    if any(counts[name] for name in RING_REPLACES):
-        raise AssertionError(f"serve launched a ring kernel: {counts}")
+    if any(counts[name] for name in (*RING_REPLACES, "ssd_scan")):
+        raise AssertionError(f"serve launched another kernel: {counts}")
     decode_tokens = engine.counters["decode_tokens"]
     ph = engine.phase_seconds
     print(f"  served {len(done)}/{len(reqs)} requests (prompts "
@@ -420,7 +461,8 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 def _counters():
     return {"flash_attention": flash_ops.flash_attention,
-            **{name: getattr(ring_ops, name) for name in RING_REPLACES}}
+            **{name: getattr(ring_ops, name) for name in RING_REPLACES},
+            "ssd_scan": ssd_ops.ssd_scan}
 
 
 def read_counts():
@@ -589,7 +631,7 @@ def phase_allreduce():
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if launches != {"flash_attention": 0, "ring_reduce_scatter": 1,
-                    "ring_allgather": 1, "ring_alltoall": 0}:
+                    "ring_allgather": 1, "ring_alltoall": 0, "ssd_scan": 0}:
         raise AssertionError(f"allreduce launches {launches}: expected 1 B1 "
                              "and 1 B2")
     if out.shape != g.shape or out.dtype != g.dtype:
@@ -646,7 +688,7 @@ def phase_sort():
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if launches != {"flash_attention": 0, "ring_reduce_scatter": 0,
-                    "ring_allgather": 1, "ring_alltoall": 2}:
+                    "ring_allgather": 1, "ring_alltoall": 2, "ssd_scan": 0}:
         raise AssertionError(f"sort launches {launches}: expected 1 B2 and "
                              "2 B4")
     out = sort.gather_sorted(merged, valid)
@@ -663,6 +705,232 @@ def phase_sort():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# SSD scan (B6) and mamba2 serving
+# ---------------------------------------------------------------------------
+def ssd_inputs(shape, dtype, gen, fast_decay=False):
+    """x and Bm/C gaussian (scaled as the JAX package's kernel tests), the
+    decay a uniform in [0.3, 0.99] in fp32; with ``fast_decay`` every other
+    head decays as exp(-(4 + 16 u)) instead."""
+    B, S, H, P, G, N, _ = shape
+    dev = torch.device("cuda")
+    x = (torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5).to(dtype)
+    a = torch.rand(B, S, H, generator=gen, device=dev).clamp(0.3, 0.99)
+    if fast_decay:
+        u = torch.rand(B, S, (H + 1) // 2, generator=gen, device=dev)
+        a[:, :, ::2] = torch.exp(-(4 + 16 * u))
+    Bm = (torch.randn(B, S, G, N, generator=gen, device=dev) * 0.3).to(dtype)
+    C = (torch.randn(B, S, G, N, generator=gen, device=dev) * 0.3).to(dtype)
+    return x, a, Bm, C
+
+
+def ssd_bound(shape, dtype):
+    """(bound_ms, bound_by, bytes, flops).  Bytes: x, a, Bm, C read once,
+    y written once.  FLOPs: the least work of the function, the causal
+    half of the two Q x Q products (C B^T over N and W x over P, j <= i)
+    plus C S and the state update (2 Q N P each), per (b, h, chunk); the
+    TPU kernel computes the full Q x Q products."""
+    B, S, H, P, G, N, chunk = shape
+    Q = min(chunk, S)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H
+    pairs = Q * (Q + 1) // 2
+    flops = B * H * (S // Q) * (2 * pairs * N + 2 * pairs * P + 4 * Q * N * P)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes",
+            nbytes, flops)
+
+
+def phase_ssd_kernel():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    max_err = 0.0
+    both = (torch.float32, torch.bfloat16)
+    checks = [(s, torch.float32, False) for s in SSD_TEST_SHAPES] + [
+        (s, dt, False) for s in SSD_SERVE_SHAPES + SSD_MORE_SHAPES
+        for dt in both] + [(SSD_FAST_DECAY_SHAPE, dt, True) for dt in both]
+    for shape, dtype, fast in checks:
+        x, a, Bm, C = ssd_inputs(shape, dtype, gen, fast_decay=fast)
+        chunk = shape[-1]
+        got = ssd_ops.ssd_scan(x, a, Bm, C, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ssd_ops.ssd_scan(x.float(), a, Bm.float(), C.float(),
+                                chunk=chunk, force_ref=True)
+        err = float((got.float() - want).abs().max())
+        if dtype == torch.float32:
+            ok = torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL)
+            note = f"tol {SSD_TOL}"
+        else:
+            excess = float(((got.float() - want).abs()
+                            - BF16_HALF_ULP * want.abs()).max())
+            ok = excess <= SSD_TOL
+            note = (f"vs fp32 plain: max(|err| - 2^-8 |x|)={excess:.3e} "
+                    f"(limit {SSD_TOL})")
+        ok = ok and bool(torch.isfinite(got.float()).all())
+        print(f"  check {shape}{' fast decay' if fast else ''} "
+              f"{str(dtype)[6:]}: max_abs_err={err:.3e} {note} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"ssd_scan kernel disagrees at {shape} "
+                                 f"{dtype}: max_abs_err={err}")
+        max_err = max(max_err, err)
+
+    rows = []
+    for shape in SSD_TIME_SHAPES:
+        dtype = torch.bfloat16
+        x, a, Bm, C = ssd_inputs(shape, dtype, gen)
+        kern = lambda: ssd_ops.ssd_scan(x, a, Bm, C, chunk=shape[-1])
+        plain = lambda: ssd_ops.ssd_scan(x, a, Bm, C, chunk=shape[-1],
+                                         force_ref=True)
+        ms, plain_ms = card_ms(kern, 20), card_ms(plain, 5)
+        bound_ms, bound_by, nbytes, flops = ssd_bound(shape, dtype)
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        print(f"  time S={shape[1]} bf16 (card, graph replay): kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
+              f"ms ({bound_by}: {nbytes} bytes, {flops} flops) -> "
+              f"{flops / ms / 1e9:.1f} GFLOP/s, {bound_ms / ms:.2%} of the "
+              "bound")
+    return max_err, rows
+
+
+def phase_reference_ssm():
+    """A small fp32 mamba2 on the card against the same model on the CPU:
+    prefill and 4 decode steps.  The card's scan is the kernel, the CPU's
+    its plain version; TF32 is off, so the logits agree to fp32 rounding
+    (1e-4, the differential tests' tolerance)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("mamba2-370m", smoke=True),
+                              dtype="float32", param_dtype="float32",
+                              d_model=128, ssm_head_dim=32, ssm_state=32,
+                              ssm_chunk=16)
+    cpu = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    gpu = _to(cpu, "cuda")
+    rng = np.random.RandomState(1)
+    toks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (2, 48)))
+    worst = 0.0
+    lc, cc = prefill(cpu, {"tokens": toks}, cfg)
+    before = ssd_ops.ssd_scan.launches
+    lg, cg = prefill(gpu, {"tokens": toks.cuda()}, cfg)
+    if ssd_ops.ssd_scan.launches != before + cfg.num_layers:
+        raise AssertionError("the card's prefill did not launch the kernel")
+    for step in range(5):
+        if lg.shape != (2, 1, cfg.vocab_size) or not torch.isfinite(lg).all():
+            raise AssertionError(f"logits {tuple(lg.shape)} not finite")
+        err = float((lg.cpu() - lc).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"card vs CPU mamba2 logits at step {step}: "
+                                 f"max_abs {err}")
+        nxt = lc[:, 0].argmax(-1)
+        lc, cc = decode_step(cpu, cc, nxt, cfg)
+        lg, cg = decode_step(gpu, cg, nxt.cuda(), cfg)
+    print(f"  fp32 small mamba2, card (SSD kernel) vs CPU (plain scan): "
+          f"prefill + 4 decode steps, max_abs {worst:.3e} (tol 1e-4)")
+
+
+def phase_serve_ssm():
+    cfg = get_config("mamba2-370m")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  mamba2-370m full width: {cfg.num_layers} SSD layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, "
+          f"state {cfg.ssm_state}, {n_params / 1e9:.3f} B params in bf16, "
+          f"init {time.perf_counter() - t0:.2f} s")
+    max_len = max(SSM_PROMPT_LENS)
+    engine = ServeEngine(cfg, params, max_len=max_len, num_slots=4)
+    rng = np.random.RandomState(0)
+
+    def make(n):
+        return Request(prompt=rng.randint(1, cfg.vocab_size, (n,))
+                       .astype(np.int32), max_new_tokens=MAX_NEW)
+
+    engine.submit(make(64))  # warmup: first-call set-up outside the run
+    engine.run_to_completion()
+    torch.cuda.synchronize()
+    engine.reset_stats()
+    reqs = [make(n) for n in SSM_PROMPT_LENS]
+    for r in reqs:
+        engine.submit(r)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    done = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts["ssd_scan"]
+
+    if engine.truncated or len(done) != len(reqs):
+        raise AssertionError(f"served {len(done)}/{len(reqs)} requests")
+    for r in reqs:
+        if len(r.generated) != MAX_NEW:
+            raise AssertionError(f"request {r.rid}: {len(r.generated)} "
+                                 f"tokens, budget {MAX_NEW}")
+    prefills = engine.counters["prefills"]
+    if launches != prefills * cfg.num_layers or launches == 0:
+        raise AssertionError(f"ssd_scan launches {launches} != prefills "
+                             f"{prefills} x {cfg.num_layers} layers")
+    if any(counts[name] for name in counts if name != "ssd_scan"):
+        raise AssertionError(f"serve_ssm launched another kernel: {counts}")
+    decode_tokens = engine.counters["decode_tokens"]
+    print(f"  served {len(done)}/{len(reqs)} requests (prompts "
+          f"{list(SSM_PROMPT_LENS)}, {MAX_NEW} new tokens each) in "
+          f"{wall:.4f} s over {engine.counters['steps']} steps; peak device "
+          f"memory {peak / 1e9:.3f} GB")
+    print(f"  ssd_scan launches {launches} = {prefills} prefills x "
+          f"{cfg.num_layers} layers")
+    print(f"  decode: {decode_tokens} tokens, {decode_tokens / wall:.2f} "
+          "tok/s over the run's wall clock; phase seconds " + ", ".join(
+              f"{k}={v:.4f}" for k, v in engine.phase_seconds.items()))
+
+    prefill_s = {}
+    for n in SSM_PROMPT_LENS[::2] + (1024,):
+        toks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (1, n)),
+                               device="cuda")
+        run = lambda: prefill(params, {"tokens": toks}, cfg)
+        run()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        prefill_s[n] = (time.perf_counter() - t) / 3
+    print("  prefill seconds by prompt length: " + ", ".join(
+        f"{n}: {s:.5f}" for n, s in prefill_s.items()))
+
+    # kernel path vs plain-version path: last-token prefill logits
+    before = ssd_ops.ssd_scan.launches
+    n = SSM_PROMPT_LENS[-1]
+    toks = torch.as_tensor(reqs[-1].prompt, device="cuda")[None].long()
+    got, gc = prefill(params, {"tokens": toks}, cfg)
+    want, wc = prefill(params, {"tokens": toks}, cfg, force_ref=True)
+    got, want = got.float(), want.float()
+    if ssd_ops.ssd_scan.launches != before + cfg.num_layers:
+        raise AssertionError("the kernel path did not launch the kernel")
+    if got.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise AssertionError(f"prefill logits {tuple(got.shape)} not finite")
+    if not (torch.isfinite(gc["ssm"]).all() and torch.isfinite(gc["conv"]
+                                                               .float()).all()):
+        raise AssertionError("prefill states not finite")
+    rel = float((got - want).norm() / want.norm())
+    print(f"  prefill logits, kernel vs plain path (prompt {n}): rel L2 "
+          f"{rel:.3e} (tol {LOGIT_REL_TOL}), max_abs "
+          f"{float((got - want).abs().max()):.3e}, max |logit| "
+          f"{float(want.abs().max()):.3f}")
+    if not rel <= LOGIT_REL_TOL:
+        raise AssertionError(f"prefill logits disagree: rel L2 {rel}")
+    del params, engine, gc, wc
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -675,7 +943,7 @@ def main() -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}")
 
-    sources = (flash_ops.SOURCE, ring_ops.SOURCE)
+    sources = (flash_ops.SOURCE, ring_ops.SOURCE, ssd_ops.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         recs = list(pool.map(build, sources))
     for source, rec in zip(sources, recs):
@@ -701,6 +969,11 @@ def main() -> int:
     print("[serve]")
     phase_reference()
     paths["serve"] = phase_serve()
+    print("[ssd-kernel]")
+    ssd_err, ssd_rows = phase_ssd_kernel()
+    print("[serve-ssm]")
+    phase_reference_ssm()
+    paths["serve_ssm"] = phase_serve_ssm()
 
     def launches(name):
         """The total over the paths and each path's own count."""
@@ -727,6 +1000,13 @@ def main() -> int:
         table["kernels"].append(dict(
             name=name, route="cuda", source=RING_SOURCE,
             replaces=RING_REPLACES[name], **launches(name), **row))
+    ssd_row = ssd_rows[-1]  # S = 1024, the longest serve prompt
+    table["kernels"].append(dict(
+        name="ssd_scan", route="cuda", source=SSD_SOURCE,
+        replaces=SSD_REPLACES, **launches("ssd_scan"), max_abs_err=ssd_err,
+        ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
+        bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"],
+        library_ms=None))
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

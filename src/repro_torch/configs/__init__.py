@@ -1,7 +1,8 @@
-"""repro_torch.configs — the dense architectures as selectable configs.
+"""repro_torch.configs — the ported architectures as selectable configs.
 
-Only the dense family is ported (slice 1); every other name of the JAX
-package's registry raises, naming the ROADMAP item that ports it.
+The dense family (slice 1) and mamba2 (the ssm family, slice 3) are
+ported; every other name of the JAX package's registry raises, naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ _REGISTRY = {
     "qwen1.5-0.5b": "qwen15_05b",
     "tinyllama-1.1b": "tinyllama_11b",
     "smollm-360m": "smollm_360m",
+    "mamba2-370m": "mamba2_370m",
 }
 _UNPORTED = {
-    "mamba2-370m": "A11",
     "recurrentgemma-9b": "A11",
     "mistral-large-123b": "A9",
     "qwen2-moe-a2.7b": "A9",

@@ -8,8 +8,10 @@ never imports JAX) and returns the port's parameter dict
 * the stacked ``units`` leaves (leading ``n_units`` axis, one entry per
   block kind of the pattern) and the unrolled ``rem`` blocks become one
   list of per-layer blocks in forward order;
-* ``dense`` weights stored ``(d_in, d_out)`` become ``(d_out, d_in)``;
-* ``embed``, ``lm_head`` and ``final_norm`` carry over.
+* ``dense`` weights (a dict with ``"w"``) stored ``(d_in, d_out)`` become
+  ``(d_out, d_in)``; every other leaf carries over bit for bit: norms,
+  SSD's ``conv_w``/``conv_x``/``conv_b``/``conv_c`` ``(K, channels)``
+  and its ``(H,)``/``(d,)`` vectors, ``embed`` and ``final_norm``.
 
 bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses; they are reinterpreted bit for bit through
@@ -43,13 +45,13 @@ def _dense(d, device):
 
 
 def _block(b, device):
-    return {
-        "ln1": to_tensor(b["ln1"], device),
-        "attn": {n: _dense(b["attn"][n], device)
-                 for n in ("wq", "wk", "wv", "wo")},
-        "ln2": to_tensor(b["ln2"], device),
-        "mlp": {n: _dense(b["mlp"][n], device) for n in ("wi", "wg", "wo")},
-    }
+    """A block's pytree: dense dicts transposed, other leaves as they
+    are (the attention/MLP blocks and the SSD blocks alike)."""
+    if isinstance(b, dict):
+        if "w" in b:
+            return _dense(b, device)
+        return {k: _block(v, device) for k, v in b.items()}
+    return to_tensor(b, device)
 
 
 def _index(tree, i):

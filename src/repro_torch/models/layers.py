@@ -32,6 +32,7 @@ __all__ = [
     "dense",
     "init_mlp",
     "gated_mlp",
+    "causal_conv1d",
     "chunked_attention",
     "init_attention",
     "attention_forward",
@@ -121,6 +122,30 @@ def gated_mlp(p, x, act="silu"):
     a = dense(p["wi"], x)
     g = dense(p["wg"], x)
     return dense(p["wo"], _ACTS[act](g) * a)
+
+
+# -- depthwise causal conv ----------------------------------------------------
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, C); w: (K, C).
+
+    Returns ``(y, new_state)``: ``y`` sums the K shifted products in x's
+    dtype, as the JAX function does, and ``new_state`` is the trailing
+    ``(B, K-1, C)`` inputs, the decode carry.  With ``state`` given and
+    ``S == 1`` this is the decode step.
+    """
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    new_state = xp[:, xp.shape[1] - (K - 1):] if K > 1 else torch.zeros_like(pad)
+    return y.to(x.dtype), new_state
 
 
 # -- memory-efficient attention (the CPU path) --------------------------------

@@ -1,10 +1,12 @@
-"""Decoder stack of the port — the dense family (slice 1).
+"""Decoder stack of the port — the dense and ssm families.
 
-Port of the JAX package's ``models/transformer.py`` for
-``block_pattern == ("attn_mlp",)``: parameter init from a
-``torch.Generator``, the embedding and output head, prefill (with padded
-``true_len``) and decode over a ring-buffer KV cache.  Other families
-raise, naming the ROADMAP item that ports them.
+Port of the JAX package's ``models/transformer.py`` for the dense family
+(``block_pattern == ("attn_mlp",)``: prefill with padded ``true_len`` and
+decode over a ring-buffer KV cache) and the ssm family (mamba2,
+``("ssd",)``: prefill producing each layer's terminal state, decode over
+that recurrent state): parameter init from a ``torch.Generator``, the
+embedding and output head.  Other families raise, naming the ROADMAP item
+that ports them.
 
 Layouts (the JAX package stacks layers for ``lax.scan``; eager PyTorch
 runs a plain loop):
@@ -12,10 +14,12 @@ runs a plain loop):
 * params: ``{"embed": (V, d), "layers": [block, ...], "final_norm": (d,),
   "lm_head": {"w": (V, d)}}``; ``repro_torch.convert`` turns the JAX
   pytree into this.
-* decode caches: ``{"k": (B, n_layers, L, KV, D), "v": ..., "pos": (B,)}``.
-  :func:`decode_step` writes each new K/V row **in place** into
-  ``caches["k"]`` / ``caches["v"]`` (the JAX function returns new arrays)
-  and returns a new dict whose ``pos`` is advanced by one.
+* decode caches, per family: dense ``{"k": (B, n_layers, L, KV, D),
+  "v": ..., "pos": (B,)}``; ssm ``{"ssm": (B, n_layers, H, N, P) fp32,
+  "conv": (B, n_layers, K-1, di + 2GN) in cfg.dtype, "pos": (B,)}``.
+  :func:`decode_step` writes each new K/V row, or each layer's new state,
+  **in place** (the JAX function returns new arrays) and returns a new
+  dict whose ``pos`` is advanced by one.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from ..core.errors import KampingError
 from ..device import resolve_device
+from . import ssd as ssd_mod
 from .config import ModelConfig
 from .layers import (
     _project_qkv,
@@ -51,24 +56,27 @@ __all__ = [
     "decode_step",
 ]
 
-_PORTED_KINDS = ("attn_mlp",)
+# The block kind of each ported family; a family's blocks are all of its
+# kind, so every layer's decode cache has one layout.
+_FAMILY_KIND = {"dense": "attn_mlp", "ssm": "ssd"}
+_ATTN_CACHE_KINDS = ("attn_mlp",)
 
 
 # ---------------------------------------------------------------------------
 # pattern / structure helpers
 # ---------------------------------------------------------------------------
 def block_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The repeating block pattern; only the dense family is ported."""
-    if cfg.family != "dense" or cfg.is_encoder_decoder or (
-        cfg.block_pattern is not None
-        and not set(cfg.block_pattern) <= set(_PORTED_KINDS)
-    ):
+    """The repeating block pattern; the dense and ssm families are
+    ported."""
+    kind = _FAMILY_KIND.get(cfg.family)
+    pattern = tuple(cfg.block_pattern) if cfg.block_pattern else (kind,)
+    if kind is None or cfg.is_encoder_decoder or set(pattern) != {kind}:
         raise NotImplementedError(
             f"config {cfg.name!r} (family {cfg.family!r}): only the dense "
-            "family is ported; the other families come with ROADMAP A9 "
-            "(moe) and A11 (ssm, hybrid, audio, vlm)"
+            "and ssm families are ported; the other families come with "
+            "ROADMAP A9 (moe) and A11 (hybrid with B7, audio, vlm)"
         )
-    return tuple(cfg.block_pattern) if cfg.block_pattern else ("attn_mlp",)
+    return pattern
 
 
 def _attn_window(cfg, kind):
@@ -81,6 +89,8 @@ def _attn_window(cfg, kind):
 # parameter init
 # ---------------------------------------------------------------------------
 def _init_block(generator, kind, cfg, device):
+    if kind == "ssd":
+        return ssd_mod.init_ssd_block(generator, cfg, device=device)
     d = cfg.d_model
     zero = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
     return {
@@ -170,37 +180,58 @@ def _cache_len(cfg, kind, max_len):
 def supports_padded_prefill(cfg, seq_len, max_len=None):
     """True when right-padded (bucketed) prefill is exact: every block is
     causal attention and every cache holds at least ``seq_len`` rows (see
-    the JAX function for the argument)."""
+    the JAX function for the argument).  A recurrent block carries a
+    terminal state that padding would corrupt."""
     max_len = max_len or seq_len
     kinds = set(block_pattern(cfg))
+    if not kinds <= set(_ATTN_CACHE_KINDS):
+        return False
     return all(_cache_len(cfg, k, max_len) >= seq_len for k in kinds)
 
 
-def _layer_cache_len(cfg, max_len):
-    lens = {_cache_len(cfg, k, max_len) for k in block_pattern(cfg)}
-    if len(lens) != 1:  # one stacked cache tensor needs one length
-        raise NotImplementedError(
-            "mixed cache lengths across layers are not ported yet "
-            "(ROADMAP A11)"
-        )
-    return lens.pop()
-
-
 def init_decode_caches(cfg, batch, max_len, device):
-    L = _layer_cache_len(cfg, max_len)
-    dt = torch_dtype(cfg.dtype)
-    shape = (batch, cfg.num_layers, L, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-    }
+    kind = block_pattern(cfg)[0]  # one kind, so one layout, per family
+    if kind == "ssd":
+        caches = ssd_mod.init_ssd_decode_state(cfg, batch, device,
+                                               layers=cfg.num_layers)
+    else:
+        L = _cache_len(cfg, kind, max_len)
+        dt = torch_dtype(cfg.dtype)
+        shape = (batch, cfg.num_layers, L, cfg.num_kv_heads, cfg.head_dim)
+        caches = {"k": torch.zeros(shape, dtype=dt, device=device),
+                  "v": torch.zeros(shape, dtype=dt, device=device)}
+    caches["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return caches
+
+
+def _ssd_prefill(p, x, cfg, caches, i, force_ref=False):
+    """SSD forward over the prompt AND layer ``i``'s terminal state,
+    written into the (fresh) caches: ``ssm`` as the JAX package's
+    ``_ssd_terminal_state`` computes it, ``conv`` the last K-1 raw
+    projections.  The projections are computed once and shared (the JAX
+    package computes them twice and leaves XLA to merge them).  A prompt
+    shorter than K-1 keeps the leading rows 0, the window of a zero
+    history."""
+    S = x.shape[1]
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    z, xbc_raw, dt_raw = ssd_mod._ssd_project(p, h, cfg)
+    xs, Bm, C, _ = ssd_mod._ssd_conv(p, xbc_raw, cfg)
+    dt, a = ssd_mod._decay(p, dt_raw)
+    out = ssd_mod._ssd_scan_out(p, x, z, xs, Bm, C, dt, a, cfg, force_ref)
+    caches["ssm"][:, i] = ssd_mod.ssd_terminal_state(xs, Bm, dt, a, cfg)
+    conv = caches["conv"][:, i]
+    keep = min(S, conv.shape[1])
+    if keep:
+        conv[:, conv.shape[1] - keep:] = xbc_raw[:, S - keep:].to(conv.dtype)
+    return out
 
 
 def _block_prefill(p, x, kind, cfg, caches, i, force_ref=False):
-    """Forward a block over the prompt AND write its KV into layer ``i``
-    of the (fresh) caches: the last min(L, S) positions go to ring slots
-    ``pos % L``."""
+    """Forward a block over the prompt AND write its decode cache into
+    layer ``i`` of the (fresh) caches: for attention the last min(L, S)
+    positions go to ring slots ``pos % L``."""
+    if kind == "ssd":
+        return _ssd_prefill(p, x, cfg, caches, i, force_ref=force_ref)
     B, S, _ = x.shape
     L = caches["k"].shape[2]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -224,8 +255,8 @@ def prefill(params, batch, cfg, max_len=None, true_len=None,
 
     ``true_len`` ((B,) int) enables padded prefill: ``batch["tokens"]`` is
     right-padded, logits are taken at ``true_len - 1`` and ``pos`` starts
-    at ``true_len``.  ``force_ref`` sends a CUDA prefill's attention
-    through the kernel's plain version (for checks only).
+    at ``true_len``.  ``force_ref`` sends a CUDA prefill's attention or
+    SSD scan through the kernel's plain version (for checks only).
     """
     pattern = block_pattern(cfg)
     tokens = batch["tokens"]
@@ -234,8 +265,9 @@ def prefill(params, batch, cfg, max_len=None, true_len=None,
     if true_len is not None and not supports_padded_prefill(cfg, S, max_len):
         raise ValueError(
             f"prefill(true_len=...): padded prefill is not exact for config "
-            f"{cfg.name!r} at padded length {S} (a KV window shorter than "
-            "the padded prompt); call prefill with the exact prompt length"
+            f"{cfg.name!r} at padded length {S} (recurrent blocks or a KV "
+            "window shorter than the padded prompt); call prefill with the "
+            "exact prompt length"
         )
     caches = init_decode_caches(cfg, B, max_len, tokens.device)
     x = embed_tokens(params, batch, cfg)
@@ -304,7 +336,15 @@ def _attn_decode_ring(p, x, cfg, k_cache, v_cache, pos, window):
 
 
 def _block_decode(p, x, kind, cfg, caches, i, pos):
-    """One-token decode for block ``i`` (updates its cache rows in place)."""
+    """One-token decode for block ``i`` (updates its cache rows, or its
+    recurrent state, in place)."""
+    if kind == "ssd":
+        x, new = ssd_mod.ssd_block_decode(
+            p, x, {"ssm": caches["ssm"][:, i], "conv": caches["conv"][:, i]},
+            cfg)
+        caches["ssm"][:, i] = new["ssm"]
+        caches["conv"][:, i] = new["conv"]
+        return x
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + _attn_decode_ring(p["attn"], h, cfg, caches["k"][:, i],
                               caches["v"][:, i], pos, _attn_window(cfg, kind))
@@ -315,8 +355,8 @@ def _block_decode(p, x, kind, cfg, caches, i, pos):
 def decode_step(params, caches, tokens, cfg):
     """One decode step.  tokens: (B,) int -> (logits (B, 1, V), caches).
 
-    K/V rows are written in place; the returned dict shares those tensors
-    and carries ``pos + 1``."""
+    K/V rows and recurrent states are written in place; the returned dict
+    shares those tensors and carries ``pos + 1``."""
     pattern = block_pattern(cfg)
     pos = caches["pos"]
     x = params["embed"][tokens[:, None]]

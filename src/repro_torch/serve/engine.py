@@ -1,10 +1,13 @@
 """Serving engine: continuous slot batching (DESIGN.md §11) on PyTorch.
 
-Port of the JAX package's ``serve/engine.py`` for the dense KV layout:
+Port of the JAX package's ``serve/engine.py`` for the dense layout, over
+a KV ring (dense family) or a recurrent SSD state (ssm family):
 
 * **Bucketed padded prefill** — prompts are right-padded to power-of-two
-  buckets and prefilled with ``prefill(..., true_len=...)``; on a CUDA
-  device the prefill attention is the hand-written flash kernel.
+  buckets and prefilled with ``prefill(..., true_len=...)`` where that is
+  exact (causal attention); a recurrent model prefills each prompt at its
+  own length.  On a CUDA device the prefill attention is the hand-written
+  flash kernel and the SSD scan the hand-written chunked-scan kernel.
 * **Overlapped admission** — each admission's prefill is issued (CUDA
   work is asynchronous), wrapped in a
   :class:`~repro_torch.core.NonBlockingResult` and parked in a
@@ -19,10 +22,10 @@ Port of the JAX package's ``serve/engine.py`` for the dense KV layout:
   ``split_by(block=replica_shards)`` gives each pool's live count and a
   flat one the global count.
 
-Caches carry a leading rank dimension, ``(N, S, n_layers, L, KV, D)``;
-the splice of a prefill writes rows ``(rank, slot)`` in place, and the
-decode step writes its new K/V rows in place through a ``(N*S, ...)``
-view of the same storage.
+Caches carry a leading rank dimension, ``(N, S, n_layers, ...)`` (K/V
+rows, or SSD and conv states); the splice of a prefill writes every
+cache's rows ``(rank, slot)`` in place, and the decode step writes its
+new rows in place through a ``(N*S, ...)`` view of the same storage.
 
 Not ported yet, and refused with the ROADMAP item that ports it:
 ``kv_layout="paged"`` (A8), ``plan=`` other than ``None`` and
@@ -51,6 +54,7 @@ from ..core import (
 )
 from ..device import resolve_device
 from ..models import (
+    block_pattern,
     decode_step,
     init_decode_caches,
     prefill,
@@ -192,9 +196,8 @@ class ServeEngine:
 
     def _splice(self, pcache, rank, slot):
         """Copy a one-row prefill cache into rows (rank, slot), in place."""
-        self.caches["k"][rank, slot] = pcache["k"][0]
-        self.caches["v"][rank, slot] = pcache["v"][0]
-        self.caches["pos"][rank, slot] = pcache["pos"][0]
+        for key, rows in self.caches.items():
+            rows[rank, slot] = pcache[key][0]
 
     def _liveness(self, still):
         """Per serve rank: the pool's and the global live-slot counts."""
@@ -258,6 +261,13 @@ class ServeEngine:
             raise KampingError(
                 f"ServeEngine: prompt length {n} exceeds the per-slot "
                 f"capacity max_len={self.max_len}"
+            )
+        chunk = self.cfg.ssm_chunk
+        if "ssd" in block_pattern(self.cfg) and n > chunk and n % chunk:
+            raise KampingError(
+                f"ServeEngine: prompt length {n} breaks the SSD chunk rule: "
+                f"a prompt longer than ssm_chunk={chunk} must be a multiple "
+                "of it"
             )
 
     def _bucket(self, n: int) -> int:

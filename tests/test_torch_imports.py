@@ -47,6 +47,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "clean" in out.stdout
     # the new modules and both examples were among those imported
     for name in ("repro_torch.kernels.collectives.ops",
+                 "repro_torch.kernels.ssd.ops", "repro_torch.models.ssd",
                  "repro_torch.core.flatten", "repro_torch.core.serialization",
                  "torch_quickstart.py", "torch_sample_sort.py"):
         assert name in out.stdout
@@ -60,11 +61,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.serve import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = get_config("qwen1.5-0.5b", smoke=True)
-    with pytest.raises(KampingError, match="device='cpu'"):
-        init_params(cfg)
-    params = init_params(cfg, device="cpu")
-    with pytest.raises(KampingError, match="device='cpu'"):
-        ServeEngine(cfg, params, max_len=16, num_slots=1)
-    with pytest.raises((KampingError, RuntimeError, AssertionError)):
-        main(["--arch", "qwen1.5-0.5b", "--smoke"])  # --device cuda default
+    for arch in ("qwen1.5-0.5b", "mamba2-370m"):
+        cfg = get_config(arch, smoke=True)
+        with pytest.raises(KampingError, match="device='cpu'"):
+            init_params(cfg)
+        params = init_params(cfg, device="cpu")
+        with pytest.raises(KampingError, match="device='cpu'"):
+            ServeEngine(cfg, params, max_len=16, num_slots=1)
+        with pytest.raises((KampingError, RuntimeError, AssertionError)):
+            main(["--arch", arch, "--smoke"])  # --device cuda default

@@ -243,3 +243,70 @@ def test_launcher_runs_on_cpu(capsys):
                  "--requests", "3", "--max-new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert "served 3/3 requests" in out and "device=cpu" in out
+
+
+# -- the ssm family (mamba2) --------------------------------------------------
+@pytest.fixture(scope="module")
+def ssm_models():
+    """mamba2's smoke config (3 SSD layers, chunk 8) in fp32, JAX weights
+    carried over."""
+    import dataclasses
+
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    jc = dataclasses.replace(jconfigs.get_config("mamba2-370m", smoke=True),
+                             **fp32)
+    tc = dataclasses.replace(tconfigs.get_config("mamba2-370m", smoke=True),
+                             **fp32)
+    jp = jm.init_params(jc, jax.random.PRNGKey(5))
+    return jc, tc, jp, convert_params(jax.tree.map(np.asarray, jp), tc)
+
+
+def test_ssm_engine_matches_jax_engine(ssm_models):
+    """Prompts keep the chunk rule (at most 8, or a multiple of 8); the
+    recurrent state is spliced and decoded in place, token for token as
+    the JAX engine on the same weights."""
+    jc, tc, jp, tp = ssm_models
+    rng = np.random.RandomState(10)
+    specs = [(3, 6), (8, 4), (16, 5), (5, 1), (24, 3), (7, 7)]
+    prompts = [rng.randint(1, tc.vocab_size, (n,)).astype(np.int32)
+               for n, _ in specs]
+    engine = ServeEngine(tc, tp, max_len=32, num_slots=2, device="cpu")
+    assert not engine.pad_prompts
+    jengine = js.ServeEngine(jc, jp, max_len=32, num_slots=2)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, (_, m)) in enumerate(zip(prompts, specs))]
+    jreqs = [js.Request(rid=i, prompt=p, max_new_tokens=m)
+             for i, (p, (_, m)) in enumerate(zip(prompts, specs))]
+    for r, jr in zip(reqs, jreqs):
+        engine.submit(r)
+        jengine.submit(jr)
+    done = engine.run_to_completion()
+    jengine.run_to_completion()
+    assert len(done) == len(reqs) and not engine.truncated
+    for r, jr in zip(reqs, jreqs):
+        assert len(r.generated) == r.max_new_tokens
+        assert r.generated == jr.generated, (r.rid, r.generated,
+                                             jr.generated)
+
+
+def test_ssm_engine_refuses_prompts_that_break_the_chunk_rule(ssm_models):
+    _, tc, _, tp = ssm_models
+    engine = ServeEngine(tc, tp, max_len=32, num_slots=1, device="cpu")
+    with pytest.raises(KampingError, match="chunk rule"):
+        engine.submit(Request(prompt=np.arange(1, 13, dtype=np.int32)))
+    assert not engine.queue
+    engine.submit(Request(prompt=np.arange(1, 17, dtype=np.int32),
+                          max_new_tokens=2))
+    assert len(engine.run_to_completion()) == 1
+
+
+def test_launcher_serves_mamba2_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
+                 "--requests", "3", "--max-new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=mamba2-370m-smoke" in out and "served 3/3 requests" in out

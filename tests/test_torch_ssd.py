@@ -1,0 +1,241 @@
+"""The port's SSD scan and mixer against the JAX package's.
+
+The plain scan (``repro_torch/kernels/ssd/ref.py``) must match the JAX
+package's chunked oracle within 1e-5 in fp32 (the same arithmetic, summed
+in another order), and the Pallas kernel run in interpret mode, the
+sequential recurrence and the port's own sequential recurrence within
+3e-4 (tests/test_kernels.py:71-72), over the shapes of
+tests/test_kernels.py plus a prompt shorter than the chunk.  The mixer
+(``repro_torch/models/ssd.py``) is held to the JAX one on carried weights
+for both projection layouts.  The CUDA kernel itself is held against the
+plain version on the card (``chip_smoke.py``; the last test here runs it
+where a card exists).
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+import repro.configs as jconfigs  # noqa: E402
+import repro.models.ssd as jssd  # noqa: E402
+from repro.kernels.ssd.ref import ssd_sequential_ref as jseq  # noqa: E402
+from repro.kernels.ssd.ssd import ssd_scan_pallas  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+import repro_torch.models.ssd as tssd  # noqa: E402
+from repro_torch.convert import _block  # noqa: E402
+from repro_torch.kernels.ssd import ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    ssd_scan_ref,
+    ssd_sequential_ref,
+)
+from repro_torch.models.layers import causal_conv1d  # noqa: E402
+
+# (B, S, H, P, G, N, Q): tests/test_kernels.py's shapes, then S < Q (one
+# chunk of length S, as the serve path's 100-token prompt) and G > 1 with
+# several chunks
+SHAPES = [
+    (2, 64, 4, 16, 1, 32, 16),
+    (1, 128, 2, 32, 2, 16, 32),
+    (1, 64, 8, 8, 1, 8, 64),
+    (2, 96, 4, 16, 4, 16, 32),
+    (1, 20, 4, 8, 2, 16, 32),
+]
+FP32 = dict(dtype="float32", param_dtype="float32")
+
+
+def _inputs(B, S, H, P, G, N, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, S, H, P).astype(np.float32) * 0.5
+    a = np.clip(rng.rand(B, S, H).astype(np.float32), 0.3, 0.99)
+    Bm = rng.randn(B, S, G, N).astype(np.float32) * 0.3
+    C = rng.randn(B, S, G, N).astype(np.float32) * 0.3
+    return x, a, Bm, C
+
+
+def _t(*arrays):
+    return [torch.as_tensor(np.asarray(v)) for v in arrays]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", SHAPES)
+def test_plain_scan_matches_oracle_and_pallas(B, S, H, P, G, N, Q):
+    x, a, Bm, C = _inputs(B, S, H, P, G, N)
+    before = ops.ssd_scan.launches
+    got = ops.ssd_scan(*_t(x, a, Bm, C), chunk=Q).numpy()
+    assert ops.ssd_scan.launches == before  # CPU: no kernel launch
+    oracle = np.asarray(jssd.ssd_scan_ref(x, a, Bm, C, chunk=Q))
+    np.testing.assert_allclose(got, oracle, atol=1e-5, rtol=1e-5)
+    pallas = np.asarray(ssd_scan_pallas(x, a, Bm, C, chunk=Q,
+                                        interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=3e-4, rtol=3e-4)
+    seq = np.asarray(jseq(x, a, Bm, C))
+    np.testing.assert_allclose(got, seq, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", SHAPES[:2] + SHAPES[3:])
+def test_sequential_recurrence_matches_reference(B, S, H, P, G, N, Q):
+    x, a, Bm, C = _inputs(B, S, H, P, G, N, seed=1)
+    got = ssd_sequential_ref(*_t(x, a, Bm, C)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jseq(x, a, Bm, C)),
+                               atol=1e-5, rtol=1e-5)
+    chunked = ssd_scan_ref(*_t(x, a, Bm, C), chunk=Q).numpy()
+    np.testing.assert_allclose(chunked, got, atol=3e-4, rtol=3e-4)
+
+
+def test_plain_scan_bf16_rounds_once():
+    """bf16 inputs: computed in fp32 and rounded to bf16 once, so within
+    half a bf16 ulp of the fp32 result on the same (bf16) inputs."""
+    x, a, Bm, C = _t(*_inputs(1, 64, 4, 16, 1, 32))
+    xb, Bb, Cb = (v.to(torch.bfloat16) for v in (x, Bm, C))
+    got = ssd_scan_ref(xb, a, Bb, Cb, chunk=16)
+    assert got.dtype == torch.bfloat16
+    want = ssd_scan_ref(xb.float(), a, Bb.float(), Cb.float(), chunk=16)
+    excess = (got.float() - want).abs() - 2.0 ** -8 * want.abs()
+    assert float(excess.max()) <= 1e-6
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 32), (12, 8)])
+def test_chunk_rule_raises_in_both_packages(S, chunk):
+    x, a, Bm, C = _inputs(1, S, 2, 4, 1, 4)
+    with pytest.raises(AssertionError, match="divisible"):
+        jssd.ssd_scan_ref(x, a, Bm, C, chunk=chunk)
+    with pytest.raises(ValueError, match="divisible"):
+        ssd_scan_ref(*_t(x, a, Bm, C), chunk=chunk)
+    with pytest.raises(ValueError, match="divisible"):
+        ops._check(*_t(x, a, Bm, C), chunk)
+
+
+def test_kernel_rejects_what_it_does_not_take():
+    x, a, Bm, C = _t(*_inputs(1, 16, 4, 8, 2, 8))
+    with pytest.raises(ValueError, match="dtypes"):
+        ops._check(x.to(torch.bfloat16), a, Bm, C, 8)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops._check(x, a.double(), Bm, C, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        ops._check(x[:, :, :3].contiguous(), a[:, :, :3].contiguous(), Bm,
+                   C, 8)
+    strided = torch.empty(1, 16, 8, 2).transpose(2, 3).copy_(Bm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check(x, a, strided, C, 8)
+    with pytest.raises(ValueError, match="kernel's"):
+        ops._check(*_t(*_inputs(1, 256, 2, 4, 1, 4)), 256)
+    with pytest.raises(ValueError, match=r"a \("):
+        ops._check(x, a[:, :8], Bm, C, 8)
+    with pytest.raises(ValueError, match="device"):
+        ops.ssd_scan(*(v.to("meta") for v in (x, a, Bm, C)), chunk=8)
+    assert ops._check(x, a, Bm, C, 8) == 8
+
+
+def test_causal_conv1d_matches_reference():
+    from repro.models.layers import causal_conv1d as jconv
+
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 7, 6).astype(np.float32)
+    w = rng.randn(4, 6).astype(np.float32)
+    st = rng.randn(2, 3, 6).astype(np.float32)
+    for state in (None, st):
+        jy, js = jconv(x, w, state)
+        ty, ts = causal_conv1d(*_t(x, w), None if state is None
+                               else torch.as_tensor(state))
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-6)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def _mixer(split, seed=0):
+    jc = dataclasses.replace(jconfigs.get_config("mamba2-370m", smoke=True),
+                             ssm_split_proj=split, **FP32)
+    tc = dataclasses.replace(tconfigs.get_config("mamba2-370m", smoke=True),
+                             ssm_split_proj=split, **FP32)
+    jp = jssd.init_ssd_block(jax.random.PRNGKey(seed), jc)
+    tp = _block(jax.tree.map(np.asarray, jp), "cpu")
+    return jc, tc, jp, tp
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_block_forward_matches_reference(split):
+    jc, tc, jp, tp = _mixer(split)
+    x = np.random.RandomState(3).randn(2, 16, jc.d_model).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, v: jssd.ssd_block_forward(p, v, jc))(
+        jp, jnp.asarray(x)))
+    got = tssd.ssd_block_forward(tp, torch.as_tensor(x), tc).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_block_decode_matches_reference(split):
+    jc, tc, jp, tp = _mixer(split, seed=1)
+    rng = np.random.RandomState(4)
+    jstate = jssd.init_ssd_decode_state(jc, 2)
+    tstate = tssd.init_ssd_decode_state(tc, 2, "cpu")
+    step = jax.jit(lambda p, v, s: jssd.ssd_block_decode(p, v, s, jc))
+    for _ in range(5):
+        x = rng.randn(2, 1, jc.d_model).astype(np.float32)
+        jy, jstate = step(jp, jnp.asarray(x), jstate)
+        ty, tstate = tssd.ssd_block_decode(tp, torch.as_tensor(x), tstate, tc)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(tstate["ssm"].numpy(),
+                                   np.asarray(jstate["ssm"]), atol=1e-5,
+                                   rtol=1e-4)
+        # raw projections: the two frameworks' matmuls round differently
+        np.testing.assert_allclose(tstate["conv"].numpy(),
+                                   np.asarray(jstate["conv"]), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_split_layout_equals_fused_on_the_same_weights():
+    """A split block whose weights are the fused block's column blocks
+    gives the fused block's output: the conv is depthwise, so convolving
+    the concatenated channels is the three convs."""
+    jc, tc, jp, tp = _mixer(False, seed=2)
+    di, GN, H = tc.ssm_inner, tc.ssm_groups * tc.ssm_state, tc.ssm_heads
+    w, cw = tp["in_proj"]["w"], tp["conv_w"]
+    cuts = [di, di, GN, GN, H]
+    wz, wx, wB, wC, wdt = torch.split(w, cuts, dim=0)
+    cx, cb, cc = torch.split(cw, [di, GN, GN], dim=1)
+    split = {k: v for k, v in tp.items() if k not in ("in_proj", "conv_w")}
+    split.update(wz={"w": wz}, wx={"w": wx}, wB={"w": wB}, wC={"w": wC},
+                 wdt={"w": wdt}, conv_x=cx, conv_b=cb, conv_c=cc)
+    x = torch.as_tensor(np.random.RandomState(5).randn(1, 8, tc.d_model)
+                        .astype(np.float32))
+    torch.testing.assert_close(
+        tssd.ssd_block_forward(split, x, dataclasses.replace(
+            tc, ssm_split_proj=True)),
+        tssd.ssd_block_forward(tp, x, tc), atol=1e-5, rtol=1e-5)
+
+
+def test_init_block_layouts_match_reference_shapes():
+    for split in (False, True):
+        jc, tc, jp, tp = _mixer(split)
+        mine = tssd.init_ssd_block(torch.Generator().manual_seed(0), tc,
+                                   device="cpu")
+        carried = _block(jax.tree.map(np.asarray, jp), "cpu")
+        assert set(mine) == set(carried)
+        for k in mine:
+            a = mine[k]["w"] if isinstance(mine[k], dict) else mine[k]
+            b = carried[k]["w"] if isinstance(carried[k], dict) else carried[k]
+            assert a.shape == b.shape and a.dtype == b.dtype, k
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol):
+    x, a, Bm, C = (v.to(cuda_device)
+                   for v in _t(*_inputs(1, 256, 32, 64, 1, 128)))
+    x, Bm, C = (v.to(dtype) for v in (x, Bm, C))
+    before = ops.ssd_scan.launches
+    got = ops.ssd_scan(x, a, Bm, C, chunk=128)
+    assert ops.ssd_scan.launches == before + 1
+    want = ops.ssd_scan(x, a, Bm, C, chunk=128, force_ref=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
