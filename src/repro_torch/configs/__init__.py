@@ -1,8 +1,9 @@
 """repro_torch.configs — the ported architectures as selectable configs.
 
-The dense family (slice 1) and mamba2 (the ssm family, slice 3) are
-ported; every other name of the JAX package's registry raises, naming the
-ROADMAP item that ports it.
+The dense family (slice 1), mamba2 (the ssm family, slice 3) and
+recurrentgemma (the hybrid family, slice 4) are ported; every other name
+of the JAX package's registry raises, naming the ROADMAP item that ports
+it.
 """
 from __future__ import annotations
 
@@ -14,10 +15,10 @@ _REGISTRY = {
     "tinyllama-1.1b": "tinyllama_11b",
     "smollm-360m": "smollm_360m",
     "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 _UNPORTED = {
-    "recurrentgemma-9b": "A11",
-    "mistral-large-123b": "A9",
     "qwen2-moe-a2.7b": "A9",
     "mixtral-8x22b": "A9",
     "internvl2-76b": "A11",

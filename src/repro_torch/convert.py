@@ -11,7 +11,10 @@ never imports JAX) and returns the port's parameter dict
 * ``dense`` weights (a dict with ``"w"``) stored ``(d_in, d_out)`` become
   ``(d_out, d_in)``; every other leaf carries over bit for bit: norms,
   SSD's ``conv_w``/``conv_x``/``conv_b``/``conv_c`` ``(K, channels)``
-  and its ``(H,)``/``(d,)`` vectors, ``embed`` and ``final_norm``.
+  and its ``(H,)``/``(d,)`` vectors, RG-LRU's ``conv_w`` ``(K, w)`` and
+  its ``lru`` vectors (``lam``, ``w_a``, ``b_a``, ``w_x``, ``b_x``, fp32),
+  ``embed`` and ``final_norm``.  Unit ``u``'s block ``j`` becomes layer
+  ``u * len(pattern) + j``; the remainder blocks follow.
 
 bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses; they are reinterpreted bit for bit through

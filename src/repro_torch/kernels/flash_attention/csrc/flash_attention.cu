@@ -17,6 +17,9 @@
 // as S^2 and overtake the bytes only past S of about 1200).  This design
 // runs fp32 FMAs outside the tensor cores, so its own ceiling is the
 // 67e12 fp32 rate; PERF.md holds its measured time beside the bound.
+// At recurrentgemma-9b's local attention (B=1, S=2048, H=16 over KV=1,
+// D=256, window 2048, bf16) the FLOPs term is the larger: 3.44e10 FLOPs
+// take 34.8 us at 989e12, the 35.7 MB of q, k, v and o 10.6 us.
 //
 // Design (a first, simple and correct kernel; wgmma/TMA come later):
 //   * one block per (64-row q tile, head, batch); the TPU's sequential KV
@@ -30,7 +33,11 @@
 //   * 256 threads: 16 groups of 16 lanes, each group owning 4 query rows;
 //     row max and row sum are 16-lane shuffles, so no score tile needs a
 //     block-wide barrier; P goes through shared memory to the P.V product.
-//   * head_dim 64 and 128 are template instances; other sizes are refused.
+//   * head_dim 64, 128 and 256 are template instances; other sizes are
+//     refused.  At 256 the same 64-row tile takes 213,760 B of shared
+//     memory, under the 232,448 B a block may opt into, and ptxas keeps
+//     acc[4][16] and the scores in 128 registers without spilling, so the
+//     tile is the same at every head_dim.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -244,6 +251,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                               scale, s);
   if (D == 128 && dtype == 1)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                      window, scale, s);
+  if (D == 256 && dtype == 0)
+    return launch<float, 256>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                              scale, s);
+  if (D == 256 && dtype == 1)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, B, Sq, Skv, H, KV, causal,
                                       window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

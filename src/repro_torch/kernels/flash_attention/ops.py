@@ -25,7 +25,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 @functools.cache

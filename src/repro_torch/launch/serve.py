@@ -4,7 +4,8 @@ Builds random weights for the selected config from a seeded
 ``torch.Generator``, starts the continuous-batching engine, feeds it a
 synthetic request stream with mixed prompt lengths and reports decode
 throughput and prefill time.  Runs on CUDA by default (``--device cpu``
-is for tests); on CUDA the prefill attention is the flash kernel.
+is for tests); on CUDA the prefill attention is the flash kernel and the
+SSD and RG-LRU scans their kernels.
 
 * A warmup round (one request per prompt length the stream uses) runs
   before the timed region, so the kernel build and first-call setup are

@@ -1,4 +1,5 @@
-"""repro_torch.models — the dense decoder family on PyTorch."""
+"""repro_torch.models — the dense, ssm and hybrid decoder families on
+PyTorch."""
 from .config import ModelConfig
 from .transformer import (
     block_pattern,

@@ -1,12 +1,14 @@
-"""Decoder stack of the port — the dense and ssm families.
+"""Decoder stack of the port — the dense, ssm and hybrid families.
 
 Port of the JAX package's ``models/transformer.py`` for the dense family
 (``block_pattern == ("attn_mlp",)``: prefill with padded ``true_len`` and
-decode over a ring-buffer KV cache) and the ssm family (mamba2,
+decode over a ring-buffer KV cache), the ssm family (mamba2,
 ``("ssd",)``: prefill producing each layer's terminal state, decode over
-that recurrent state): parameter init from a ``torch.Generator``, the
-embedding and output head.  Other families raise, naming the ROADMAP item
-that ports them.
+that recurrent state) and the hybrid family (recurrentgemma,
+``("rglru", "rglru", "attn_local")``: RG-LRU blocks with a terminal state
+beside local attention over a KV ring of the window): parameter init from
+a ``torch.Generator``, the embedding and output head.  Other families
+raise, naming the ROADMAP item that ports them.
 
 Layouts (the JAX package stacks layers for ``lax.scan``; eager PyTorch
 runs a plain loop):
@@ -14,12 +16,21 @@ runs a plain loop):
 * params: ``{"embed": (V, d), "layers": [block, ...], "final_norm": (d,),
   "lm_head": {"w": (V, d)}}``; ``repro_torch.convert`` turns the JAX
   pytree into this.
-* decode caches, per family: dense ``{"k": (B, n_layers, L, KV, D),
-  "v": ..., "pos": (B,)}``; ssm ``{"ssm": (B, n_layers, H, N, P) fp32,
-  "conv": (B, n_layers, K-1, di + 2GN) in cfg.dtype, "pos": (B,)}``.
-  :func:`decode_step` writes each new K/V row, or each layer's new state,
-  **in place** (the JAX function returns new arrays) and returns a new
-  dict whose ``pos`` is advanced by one.
+* decode caches, one group of keys per cache kind, each stacked over the
+  layers of that kind on dim 1:
+  dense ``{"k": (B, n_layers, L, KV, D), "v": ..., "pos": (B,)}``;
+  ssm ``{"ssm": (B, n_layers, H, N, P) fp32, "conv": (B, n_layers, K-1,
+  di + 2GN) in cfg.dtype, "pos": (B,)}``;
+  hybrid ``{"k": (B, n_attn, L, KV, D), "v": ..., "h": (B, n_rglru, w)
+  fp32, "conv": (B, n_rglru, K-1, w) in cfg.dtype, "pos": (B,)}`` with
+  ``L = min(local_window, max_len)``.  Layer ``i`` reads slot
+  :func:`layer_slots` ``(cfg)[i]`` of its kind's group: the number of
+  earlier layers of that group (recurrentgemma-9b: layer ``3u + j`` of
+  unit ``u`` is attention slot ``u`` for ``j = 2`` and RG-LRU slot
+  ``2u + j`` otherwise; the two remainder layers are RG-LRU slots 24 and
+  25).  :func:`decode_step` writes each new K/V row, or each layer's new
+  state, **in place** (the JAX function returns new arrays) and returns a
+  new dict whose ``pos`` is advanced by one.
 """
 from __future__ import annotations
 
@@ -30,11 +41,11 @@ import torch
 
 from ..core.errors import KampingError
 from ..device import resolve_device
+from . import rglru as rglru_mod
 from . import ssd as ssd_mod
 from .config import ModelConfig
 from .layers import (
     _project_qkv,
-    attention_forward,
     attention_output,
     dense,
     gated_mlp,
@@ -51,32 +62,52 @@ __all__ = [
     "embed_tokens",
     "lm_logits",
     "init_decode_caches",
+    "layer_slots",
     "supports_padded_prefill",
     "prefill",
     "decode_step",
 ]
 
-# The block kind of each ported family; a family's blocks are all of its
-# kind, so every layer's decode cache has one layout.
-_FAMILY_KIND = {"dense": "attn_mlp", "ssm": "ssd"}
-_ATTN_CACHE_KINDS = ("attn_mlp",)
+# The block kinds each ported family may use.
+_FAMILY_KINDS = {"dense": ("attn_mlp",), "ssm": ("ssd",),
+                 "hybrid": ("rglru", "attn_local")}
+_ATTN_CACHE_KINDS = ("attn_mlp", "attn_local")
+# The cache group of each kind: the keys its layers' decode state lives in.
+_CACHE_GROUP = {"attn_mlp": "attn", "attn_local": "attn", "ssd": "ssd",
+                "rglru": "rglru"}
 
 
 # ---------------------------------------------------------------------------
 # pattern / structure helpers
 # ---------------------------------------------------------------------------
 def block_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The repeating block pattern; the dense and ssm families are
-    ported."""
-    kind = _FAMILY_KIND.get(cfg.family)
-    pattern = tuple(cfg.block_pattern) if cfg.block_pattern else (kind,)
-    if kind is None or cfg.is_encoder_decoder or set(pattern) != {kind}:
+    """The repeating block pattern; the dense, ssm and hybrid families
+    are ported."""
+    kinds = _FAMILY_KINDS.get(cfg.family, ())
+    pattern = (tuple(cfg.block_pattern) if cfg.block_pattern
+               else (cfg._default_block(),))
+    if not kinds or cfg.is_encoder_decoder or not set(pattern) <= set(kinds):
         raise NotImplementedError(
-            f"config {cfg.name!r} (family {cfg.family!r}): only the dense "
-            "and ssm families are ported; the other families come with "
-            "ROADMAP A9 (moe) and A11 (hybrid with B7, audio, vlm)"
+            f"config {cfg.name!r} (family {cfg.family!r}, pattern "
+            f"{pattern}): only the dense, ssm and hybrid families are "
+            "ported; the other families come with ROADMAP A9 (moe) and A11 "
+            "(audio, vlm)"
         )
     return pattern
+
+
+def layer_slots(cfg: ModelConfig):
+    """Per layer, ``(kind, slot)``: the block kind and the layer's index in
+    its cache group (the earlier layers of that group)."""
+    pattern = block_pattern(cfg)
+    seen = {}
+    out = []
+    for i in range(cfg.num_layers):
+        kind = pattern[i % len(pattern)]
+        group = _CACHE_GROUP[kind]
+        out.append((kind, seen.get(group, 0)))
+        seen[group] = seen.get(group, 0) + 1
+    return out
 
 
 def _attn_window(cfg, kind):
@@ -93,7 +124,13 @@ def _init_block(generator, kind, cfg, device):
         return ssd_mod.init_ssd_block(generator, cfg, device=device)
     d = cfg.d_model
     zero = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
-    return {
+    if kind == "rglru":  # the recurrent block, then its own norm and MLP
+        p = rglru_mod.init_rglru_block(generator, cfg, device=device)
+        p["ln2"] = zero()
+        p["mlp"] = init_mlp(generator, d, cfg.d_ff, dtype=cfg.param_dtype,
+                            device=device)
+        return p
+    return {  # attn_mlp and attn_local
         "ln1": zero(),
         "attn": init_attention(generator, cfg, device=device),
         "ln2": zero(),
@@ -113,7 +150,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
     parameters have shapes and dtypes but no data (a CPU generator, or
     none, is taken): counting a model's parameters allocates nothing.
     """
-    pattern = block_pattern(cfg)
+    slots = layer_slots(cfg)
     device = resolve_device(device)
     gen_type = "cpu" if device.type == "meta" else device.type
     if generator is None:
@@ -129,10 +166,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
                                 generator=generator)
     params = {
         "embed": (embed * 0.02).to(dt),
-        "layers": [
-            _init_block(generator, pattern[i % len(pattern)], cfg, device)
-            for i in range(cfg.num_layers)
-        ],
+        "layers": [_init_block(generator, kind, cfg, device)
+                   for kind, _ in slots],
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=device),
     }
@@ -153,16 +188,6 @@ def lm_logits(params, hidden, cfg):
     if cfg.tie_embeddings:
         return hidden @ params["embed"].T
     return dense(params["lm_head"], hidden)
-
-
-def _block_forward(p, x, kind, cfg, force_ref=False):
-    """Residual attention + gated-MLP block over (B, S, d)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attention_forward(p["attn"], h, cfg,
-                              window=_attn_window(cfg, kind), causal=True,
-                              force_ref=force_ref)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h, cfg.act)
 
 
 # ---------------------------------------------------------------------------
@@ -190,18 +215,50 @@ def supports_padded_prefill(cfg, seq_len, max_len=None):
 
 
 def init_decode_caches(cfg, batch, max_len, device):
-    kind = block_pattern(cfg)[0]  # one kind, so one layout, per family
-    if kind == "ssd":
-        caches = ssd_mod.init_ssd_decode_state(cfg, batch, device,
-                                               layers=cfg.num_layers)
-    else:
-        L = _cache_len(cfg, kind, max_len)
+    """Zero caches in the layout of the module docstring: each cache group
+    stacks the states of its layers on dim 1."""
+    kinds = {}
+    for kind, _ in layer_slots(cfg):
+        kinds.setdefault(_CACHE_GROUP[kind], []).append(kind)
+    caches = {}
+    if "ssd" in kinds:
+        caches.update(ssd_mod.init_ssd_decode_state(
+            cfg, batch, device, layers=len(kinds["ssd"])))
+    if "rglru" in kinds:
+        caches.update(rglru_mod.init_rglru_decode_state(
+            cfg, batch, device, layers=len(kinds["rglru"])))
+    if "attn" in kinds:
+        # a family's attention blocks share one window, so one ring length
+        L = _cache_len(cfg, kinds["attn"][0], max_len)
         dt = torch_dtype(cfg.dtype)
-        shape = (batch, cfg.num_layers, L, cfg.num_kv_heads, cfg.head_dim)
-        caches = {"k": torch.zeros(shape, dtype=dt, device=device),
-                  "v": torch.zeros(shape, dtype=dt, device=device)}
+        shape = (batch, len(kinds["attn"]), L, cfg.num_kv_heads,
+                 cfg.head_dim)
+        caches["k"] = torch.zeros(shape, dtype=dt, device=device)
+        caches["v"] = torch.zeros(shape, dtype=dt, device=device)
     caches["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return caches
+
+
+def _keep_conv_window(conv, raw):
+    """Write the last K-1 rows of the raw conv input ``raw`` (B, S, c) into
+    the (fresh) conv state ``conv`` (B, K-1, c); a prompt shorter than K-1
+    keeps the leading rows 0, the window of a zero history."""
+    S = raw.shape[1]
+    keep = min(S, conv.shape[1])
+    if keep:
+        conv[:, conv.shape[1] - keep:] = raw[:, S - keep:].to(conv.dtype)
+
+
+def _rglru_prefill(p, x, cfg, caches, i, force_ref=False):
+    """RG-LRU block over the prompt AND layer ``i``'s terminal state: ``h``
+    the last step of the fp32 recurrence, ``conv`` the last K-1 rows of
+    ``rec_proj``'s output (the JAX package's ``_rglru_prefill``)."""
+    out, hseq, rec = rglru_mod.rglru_block_prefill(p, x, cfg,
+                                                   force_ref=force_ref)
+    caches["h"][:, i] = hseq[:, -1]
+    _keep_conv_window(caches["conv"][:, i], rec)
+    h = rms_norm(out, p["ln2"], cfg.norm_eps)
+    return out + gated_mlp(p["mlp"], h, cfg.act)
 
 
 def _ssd_prefill(p, x, cfg, caches, i, force_ref=False):
@@ -212,26 +269,24 @@ def _ssd_prefill(p, x, cfg, caches, i, force_ref=False):
     package computes them twice and leaves XLA to merge them).  A prompt
     shorter than K-1 keeps the leading rows 0, the window of a zero
     history."""
-    S = x.shape[1]
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     z, xbc_raw, dt_raw = ssd_mod._ssd_project(p, h, cfg)
     xs, Bm, C, _ = ssd_mod._ssd_conv(p, xbc_raw, cfg)
     dt, a = ssd_mod._decay(p, dt_raw)
     out = ssd_mod._ssd_scan_out(p, x, z, xs, Bm, C, dt, a, cfg, force_ref)
     caches["ssm"][:, i] = ssd_mod.ssd_terminal_state(xs, Bm, dt, a, cfg)
-    conv = caches["conv"][:, i]
-    keep = min(S, conv.shape[1])
-    if keep:
-        conv[:, conv.shape[1] - keep:] = xbc_raw[:, S - keep:].to(conv.dtype)
+    _keep_conv_window(caches["conv"][:, i], xbc_raw)
     return out
 
 
 def _block_prefill(p, x, kind, cfg, caches, i, force_ref=False):
     """Forward a block over the prompt AND write its decode cache into
-    layer ``i`` of the (fresh) caches: for attention the last min(L, S)
-    positions go to ring slots ``pos % L``."""
+    slot ``i`` of its cache group (the caches are fresh): for attention
+    the last min(L, S) positions go to ring slots ``pos % L``."""
     if kind == "ssd":
         return _ssd_prefill(p, x, cfg, caches, i, force_ref=force_ref)
+    if kind == "rglru":
+        return _rglru_prefill(p, x, cfg, caches, i, force_ref=force_ref)
     B, S, _ = x.shape
     L = caches["k"].shape[2]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -255,10 +310,10 @@ def prefill(params, batch, cfg, max_len=None, true_len=None,
 
     ``true_len`` ((B,) int) enables padded prefill: ``batch["tokens"]`` is
     right-padded, logits are taken at ``true_len - 1`` and ``pos`` starts
-    at ``true_len``.  ``force_ref`` sends a CUDA prefill's attention or
-    SSD scan through the kernel's plain version (for checks only).
+    at ``true_len``.  ``force_ref`` sends a CUDA prefill's attention, SSD
+    scan or RG-LRU scan through the kernel's plain version (for checks
+    only).
     """
-    pattern = block_pattern(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
@@ -271,8 +326,8 @@ def prefill(params, batch, cfg, max_len=None, true_len=None,
         )
     caches = init_decode_caches(cfg, B, max_len, tokens.device)
     x = embed_tokens(params, batch, cfg)
-    for i, p in enumerate(params["layers"]):
-        x = _block_prefill(p, x, pattern[i % len(pattern)], cfg, caches, i,
+    for (kind, slot), p in zip(layer_slots(cfg), params["layers"]):
+        x = _block_prefill(p, x, kind, cfg, caches, slot,
                            force_ref=force_ref)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if true_len is None:
@@ -336,8 +391,8 @@ def _attn_decode_ring(p, x, cfg, k_cache, v_cache, pos, window):
 
 
 def _block_decode(p, x, kind, cfg, caches, i, pos):
-    """One-token decode for block ``i`` (updates its cache rows, or its
-    recurrent state, in place)."""
+    """One-token decode for the block in slot ``i`` of its cache group
+    (updates its cache rows, or its recurrent state, in place)."""
     if kind == "ssd":
         x, new = ssd_mod.ssd_block_decode(
             p, x, {"ssm": caches["ssm"][:, i], "conv": caches["conv"][:, i]},
@@ -345,6 +400,13 @@ def _block_decode(p, x, kind, cfg, caches, i, pos):
         caches["ssm"][:, i] = new["ssm"]
         caches["conv"][:, i] = new["conv"]
         return x
+    if kind == "rglru":
+        x, new = rglru_mod.rglru_block_decode(
+            p, x, {"h": caches["h"][:, i], "conv": caches["conv"][:, i]}, cfg)
+        caches["h"][:, i] = new["h"]
+        caches["conv"][:, i] = new["conv"]
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + gated_mlp(p["mlp"], h, cfg.act)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + _attn_decode_ring(p["attn"], h, cfg, caches["k"][:, i],
                               caches["v"][:, i], pos, _attn_window(cfg, kind))
@@ -357,12 +419,10 @@ def decode_step(params, caches, tokens, cfg):
 
     K/V rows and recurrent states are written in place; the returned dict
     shares those tensors and carries ``pos + 1``."""
-    pattern = block_pattern(cfg)
     pos = caches["pos"]
     x = params["embed"][tokens[:, None]]
-    for i, p in enumerate(params["layers"]):
-        x = _block_decode(p, x, pattern[i % len(pattern)], cfg, caches, i,
-                          pos)
+    for (kind, slot), p in zip(layer_slots(cfg), params["layers"]):
+        x = _block_decode(p, x, kind, cfg, caches, slot, pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, x, cfg)
     return logits, {**caches, "pos": pos + 1}

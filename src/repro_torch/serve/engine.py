@@ -1,13 +1,14 @@
 """Serving engine: continuous slot batching (DESIGN.md §11) on PyTorch.
 
 Port of the JAX package's ``serve/engine.py`` for the dense layout, over
-a KV ring (dense family) or a recurrent SSD state (ssm family):
+a KV ring (dense family), a recurrent SSD state (ssm family) or RG-LRU
+states beside a KV ring of the local window (hybrid family):
 
 * **Bucketed padded prefill** — prompts are right-padded to power-of-two
   buckets and prefilled with ``prefill(..., true_len=...)`` where that is
   exact (causal attention); a recurrent model prefills each prompt at its
   own length.  On a CUDA device the prefill attention is the hand-written
-  flash kernel and the SSD scan the hand-written chunked-scan kernel.
+  flash kernel, and the SSD and RG-LRU scans their hand-written kernels.
 * **Overlapped admission** — each admission's prefill is issued (CUDA
   work is asynchronous), wrapped in a
   :class:`~repro_torch.core.NonBlockingResult` and parked in a
@@ -23,7 +24,7 @@ a KV ring (dense family) or a recurrent SSD state (ssm family):
   flat one the global count.
 
 Caches carry a leading rank dimension, ``(N, S, n_layers, ...)`` (K/V
-rows, or SSD and conv states); the splice of a prefill writes every
+rows, SSD, RG-LRU and conv states); the splice of a prefill writes every
 cache's rows ``(rank, slot)`` in place, and the decode step writes its
 new rows in place through a ``(N*S, ...)`` view of the same storage.
 

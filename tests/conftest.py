@@ -50,6 +50,11 @@ def pytest_configure(config):
         "(run in tier-1; selectable for the interpret-mode CI leg via "
         "`-m pallas`)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels have no "
+        "CPU mode); skips without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

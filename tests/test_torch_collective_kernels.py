@@ -6,9 +6,9 @@ a CPU tensor; they are held, bit for bit, to the JAX package's Pallas
 kernels in interpret mode and to its stacked NumPy oracles, for fp32,
 int32 and bf16 at p ∈ {1, 2, 4, 8}: B1 reduce-scatter, B2 allgather, B3
 allreduce (the B1+B2 composition) and B4 alltoall.  The CUDA kernels
-themselves run only on the card (``chip_smoke.py`` holds them to these
-plain versions bit for bit); ``test_cuda_kernels_match_plain_versions``
-does the same where a card is present.
+themselves run only on the card (``chip_smoke.py`` and
+``tests/test_torch_card.py`` hold them to these plain versions bit for
+bit).
 """
 import pytest
 
@@ -165,25 +165,3 @@ def test_wrappers_take_cpu_or_cuda_only():
             fn(x)
     with pytest.raises(ValueError, match="rings"):
         ops.ring_allgather(torch.zeros(3, 2), rings=2)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.int32])
-def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    for p, m, rings in ((1, 7, 1), (3, 4099, 1), (4, 7, 2), (8, 4099, 1)):
-        xs = torch.randint(-50, 50, (rings * p, p, m), generator=g,
-                           device=cuda_device).to(dtype)
-        for fn, x in ((ops.ring_reduce_scatter, xs),
-                      (ops.ring_alltoall, xs),
-                      (ops.ring_allgather, xs[:, 0].contiguous()),
-                      (ops.ring_allreduce, xs[:, 0].contiguous())):
-            assert torch.equal(fn(x, rings=rings),
-                               fn(x, rings=rings, force_ref=True))

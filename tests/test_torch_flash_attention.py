@@ -5,8 +5,8 @@ On the CPU the port's wrapper computes its plain version
 kernel run in interpret mode and the naive ``attention_ref`` over the
 grid of tests/test_kernels.py, within 2e-5 in fp32 (3e-2 in bf16, as
 tests/test_kernels.py:40).  The CUDA kernel itself is held against the
-same plain version on the card (``chip_smoke.py``; the last test here
-runs it where a card exists).
+same plain version on the card (``chip_smoke.py`` and
+``tests/test_torch_card.py``).
 """
 import pytest
 
@@ -110,23 +110,40 @@ def test_kernel_rejects_what_it_does_not_take():
         ops.flash_attention(kv.to("meta"), kv.to("meta"), kv.to("meta"))
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
+# head_dim 256 (recurrentgemma's local attention, MQA 16:1 over a window):
+# causal, a window shorter than S, a ragged S, and a window past S
+GRID_256 = [
+    (1, 96, 96, 16, 1, 256, True, 40),
+    (1, 130, 130, 4, 1, 256, True, None),
+    (2, 64, 64, 8, 2, 256, True, 100),
+]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 3e-2)])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, tol):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    for (B, Sq, Skv, H, KV, D, causal, window) in GRID[:1] + GRID[2:]:
-        q = torch.randn(B, Sq, H, D, generator=g, device=cuda_device).to(dtype)
-        k = torch.randn(B, Skv, KV, D, generator=g, device=cuda_device).to(dtype)
-        v = torch.randn(B, Skv, KV, D, generator=g, device=cuda_device).to(dtype)
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                   force_ref=True)
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window", GRID_256)
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 2e-5),
+                                        (jnp.bfloat16, 3e-2)])
+def test_plain_version_head_dim_256(B, Sq, Skv, H, KV, D, causal, window,
+                                    dtype, atol):
+    """The plain version is general in D: at 256 it matches the naive
+    ``attention_ref`` within the reference's tolerances
+    (tests/test_kernels.py:37,40), fp32 and bf16."""
+    q, k, v = _inputs(B, Sq, Skv, H, KV, D, seed=7)
+    qd, kd, vd = (jnp.asarray(x, dtype) for x in (q, k, v))
+    naive = np.asarray(attention_ref(qd, kd, vd, causal=causal,
+                                     window=window), np.float32)
+    tdt = torch.bfloat16 if dtype is jnp.bfloat16 else torch.float32
+    got = ops.flash_attention(*(torch.as_tensor(np.array(x, np.float32))
+                                .to(tdt) for x in (qd, kd, vd)),
+                              causal=causal, window=window)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), naive, atol=atol,
+                               rtol=atol)
+
+
+def test_head_dim_256_is_taken():
+    """The kernel's head_dim 256 instance (B5b): the wrapper's checks pass
+    it, MQA included."""
+    q = torch.zeros(1, 8, 16, 256, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 1, 256, dtype=torch.bfloat16)
+    ops._check(q, kv, kv, 2048)
+    assert ops._HEAD_DIMS == (64, 128, 256)

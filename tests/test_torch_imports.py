@@ -48,6 +48,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     # the new modules and both examples were among those imported
     for name in ("repro_torch.kernels.collectives.ops",
                  "repro_torch.kernels.ssd.ops", "repro_torch.models.ssd",
+                 "repro_torch.kernels.rg_lru.ops", "repro_torch.models.rglru",
                  "repro_torch.core.flatten", "repro_torch.core.serialization",
                  "torch_quickstart.py", "torch_sample_sort.py"):
         assert name in out.stdout
@@ -61,7 +62,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.serve import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for arch in ("qwen1.5-0.5b", "mamba2-370m"):
+    for arch in ("qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-9b"):
         cfg = get_config(arch, smoke=True)
         with pytest.raises(KampingError, match="device='cpu'"):
             init_params(cfg)

@@ -2,10 +2,12 @@
 
 JAX initialises the parameters; ``repro_torch.convert`` carries them over
 (through numpy); both packages then run ``prefill`` and ``decode_step``s
-on the smoke configs of qwen1.5 (QKV bias), smollm (GQA) and mamba2 (the
-ssm family: 3 SSD layers, chunk 8).  The dense models are also prefilled
-padded (``true_len``); a recurrent model never is, since padding would
-corrupt its terminal state.  In float32 the logits agree within 1e-4 —
+on the smoke configs of qwen1.5 (QKV bias), smollm (GQA), mistral-large
+(GQA, rope theta 1e6), mamba2 (the ssm family: 3 SSD layers, chunk 8) and
+recurrentgemma (the hybrid family: RG-LRU, RG-LRU, local attention over a
+window of 8, then two more RG-LRU layers).  The dense models are also
+prefilled padded (``true_len``); a recurrent model never is, since
+padding would corrupt its terminal state.  In float32 the logits agree within 1e-4 —
 the two frameworks sum in different orders, so the agreement is to
 rounding, not bitwise.  A bf16 round trip checks that ``convert`` moves
 bfloat16 bits unchanged.
@@ -26,8 +28,8 @@ import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.convert import convert_params, to_tensor  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-DENSE = ("qwen1.5-0.5b", "smollm-360m")
-ARCHS = DENSE + ("mamba2-370m",)
+DENSE = ("qwen1.5-0.5b", "smollm-360m", "mistral-large-123b")
+ARCHS = DENSE + ("mamba2-370m", "recurrentgemma-9b")
 FP32 = dict(dtype="float32", param_dtype="float32")
 
 
@@ -93,9 +95,9 @@ def test_unported_families_refuse():
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tconfigs.get_config("mixtral-8x22b")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tconfigs.get_config("recurrentgemma-9b")
+        tconfigs.get_config("whisper-medium")
     cfg = dataclasses.replace(tconfigs.get_config("qwen1.5-0.5b", smoke=True),
-                              family="hybrid")
+                              family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.block_pattern(cfg)
 
@@ -116,14 +118,37 @@ def test_ssm_prefill_and_decode_match_reference():
     _check_prefill_and_decode("mamba2-370m", padded=False)
 
 
-def _check_prefill_and_decode(arch, padded):
+@pytest.mark.parametrize("S", [5, 12])
+def test_hybrid_prefill_and_decode_match_reference(S):
+    """recurrentgemma: the RG-LRU ``h``/``conv`` states and the local
+    attention's K/V ring after prefill, then 8 decode steps; a 12-token
+    prompt is longer than the window of 8, so prefill keeps only its last
+    8 positions and decode wraps the ring.  Unpadded only, as mamba2."""
+    assert not tt.supports_padded_prefill(
+        tconfigs.get_config("recurrentgemma-9b", smoke=True), 16, 24)
+    _check_prefill_and_decode("recurrentgemma-9b", padded=False, S=S)
+
+
+def _jax_layer_caches(jcache, jc):
+    """The JAX caches per layer in forward order: unit ``u``'s block ``j``
+    (stacked, n_units first), then the remainder blocks."""
+    n_units = jc.num_layers // len(jc.block_pattern or (None,))
+    out = [{k: np.asarray(v)[u] for k, v in unit.items()}
+           for u in range(n_units) for unit in jcache["units"]]
+    return out + [{k: np.asarray(v) for k, v in b.items()}
+                  for b in jcache["rem"]]
+
+
+def _check_prefill_and_decode(arch, padded, S=None):
     jc, tc = _cfgs(arch, **FP32)
     jp, tp = _carry(jc, tc)
     rng = np.random.RandomState(1)
     ssm = jc.family == "ssm"
+    hybrid = jc.family == "hybrid"
     # an SSD prompt keeps the chunk rule (8 divides 16); 8 decode steps
-    B, S, max_len = 2, 16 if ssm else 12, 24 if ssm else 20
-    n_real, steps = np.array([S, 7]), 8 if ssm else 4
+    B, max_len = 2, 24 if ssm or hybrid else 20
+    S = S or (16 if ssm else 12)
+    n_real, steps = np.array([S, 7]), 8 if ssm or hybrid else 4
     toks = rng.randint(1, jc.vocab_size, (B, S)).astype(np.int32)
     tl = n_real if padded else None
 
@@ -137,7 +162,14 @@ def _check_prefill_and_decode(arch, padded):
                                   np.asarray(jcache["pos"]))
     # the caches the decode will read, layer by layer; the JAX package
     # stacks layers first: (n_layers, B, ...)
-    for key in ("ssm", "conv") if ssm else ("k",):
+    if hybrid:
+        jlayers = _jax_layer_caches(jcache, jc)
+        for (kind, slot), want in zip(tt.layer_slots(tc), jlayers):
+            for key in want:
+                np.testing.assert_allclose(
+                    tcache[key][:, slot].numpy(), want[key], atol=1e-5,
+                    rtol=1e-5, err_msg=f"{kind} slot {slot} {key}")
+    for key in () if hybrid else ("ssm", "conv") if ssm else ("k",):
         want = np.asarray(jcache["units"][0][key])
         got = tcache[key].numpy()
         np.testing.assert_allclose(np.moveaxis(got, 1, 0), want, atol=1e-5,
@@ -199,7 +231,24 @@ def test_bf16_round_trip_through_convert(arch):
     emb = tp["embed"].view(torch.int16).numpy()
     np.testing.assert_array_equal(emb, jn["embed"].view(np.int16))
     bits = lambda t: t.view(torch.int16).numpy()
-    if jc.family == "ssm":
+    if jc.family == "hybrid":  # layer 1: RG-LRU; layer 2: local attention
+        blk, jblk = tp["layers"][1], jn["units"][1]
+        np.testing.assert_array_equal(  # dense: transposed
+            bits(blk["rec_proj"]["w"]),
+            jblk["rec_proj"]["w"][0].T.view(np.int16))
+        np.testing.assert_array_equal(  # conv (K, w): as it is
+            bits(blk["conv_w"]), jblk["conv_w"][0].view(np.int16))
+        for name in ("lam", "w_a", "b_a", "w_x", "b_x"):  # fp32 vectors
+            assert blk["lru"][name].dtype == torch.float32
+            np.testing.assert_array_equal(blk["lru"][name].numpy(),
+                                          jblk["lru"][name][0])
+        np.testing.assert_array_equal(
+            bits(tp["layers"][2]["attn"]["wk"]["w"]),
+            jn["units"][2]["attn"]["wk"]["w"][0].T.view(np.int16))
+        np.testing.assert_array_equal(  # the remainder: the last layer
+            bits(tp["layers"][-1]["mlp"]["wo"]["w"]),
+            jn["rem"][-1]["mlp"]["wo"]["w"].T.view(np.int16))
+    elif jc.family == "ssm":
         blk, jblk = tp["layers"][1], jn["units"][0]
         np.testing.assert_array_equal(  # dense: transposed
             bits(blk["in_proj"]["w"]),
@@ -273,3 +322,45 @@ def test_ssm_prefill_then_decode_equals_longer_prefill(n_prompt):
                                    rtol=1e-4)
         torch.testing.assert_close(caches["conv"], wcache["conv"])
         assert torch.equal(caches["pos"], wcache["pos"])
+
+
+@pytest.mark.parametrize("n_prompt", [1, 2, 9])  # 9 > local_window = 8
+def test_hybrid_prefill_then_decode_equals_longer_prefill(n_prompt):
+    """recurrentgemma: a prompt of n tokens followed by decode steps gives
+    the logits and caches of prefilling the longer prompts.  The RG-LRU
+    ``conv`` window keeps zero rows in front when n < K-1 (the port's
+    rule, ROADMAP C4) and the K/V ring wraps past the window."""
+    tc = dataclasses.replace(
+        tconfigs.get_config("recurrentgemma-9b", smoke=True), **FP32)
+    tp = tt.init_params(tc, torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.as_tensor(np.random.RandomState(6).randint(
+        1, tc.vocab_size, (2, n_prompt + 4)))
+    logits, caches = tt.prefill(tp, {"tokens": toks[:, :n_prompt]}, tc,
+                                max_len=32)
+    for t in range(n_prompt, n_prompt + 4):
+        logits, caches = tt.decode_step(tp, caches, toks[:, t], tc)
+        want, wcache = tt.prefill(tp, {"tokens": toks[:, :t + 1]}, tc,
+                                  max_len=32)
+        torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+        for key in ("h", "conv", "k", "v"):
+            torch.testing.assert_close(caches[key], wcache[key], atol=1e-5,
+                                       rtol=1e-4)
+        assert torch.equal(caches["pos"], wcache["pos"])
+
+
+def test_hybrid_cache_layout():
+    """recurrentgemma-9b at full width: 26 RG-LRU slots and 12 attention
+    slots over a ring of the window, layer 3u + j in unit order."""
+    cfg = tconfigs.get_config("recurrentgemma-9b")
+    slots = tt.layer_slots(cfg)
+    assert slots[:6] == [("rglru", 0), ("rglru", 1), ("attn_local", 0),
+                         ("rglru", 2), ("rglru", 3), ("attn_local", 1)]
+    assert slots[-2:] == [("rglru", 24), ("rglru", 25)]
+    caches = tt.init_decode_caches(cfg, 2, 3072, "meta")
+    assert tuple(caches["k"].shape) == (2, 12, 2048, 1, 256)
+    assert tuple(caches["h"].shape) == (2, 26, 4096)
+    assert caches["h"].dtype == torch.float32
+    assert tuple(caches["conv"].shape) == (2, 26, 3, 4096)
+    assert caches["conv"].dtype == torch.bfloat16
+    short = tt.init_decode_caches(cfg, 1, 1024, "meta")
+    assert short["k"].shape[2] == 1024  # min(window, max_len)

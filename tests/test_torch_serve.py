@@ -310,3 +310,86 @@ def test_launcher_serves_mamba2_on_cpu(capsys):
                  "--requests", "3", "--max-new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert "arch=mamba2-370m-smoke" in out and "served 3/3 requests" in out
+
+
+# -- the hybrid family (recurrentgemma) ---------------------------------------
+@pytest.fixture(scope="module")
+def hybrid_models():
+    """recurrentgemma's smoke config (RG-LRU, RG-LRU, local attention over
+    a window of 8, two more RG-LRU layers) in fp32, JAX weights carried
+    over."""
+    import dataclasses
+
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    jc = dataclasses.replace(
+        jconfigs.get_config("recurrentgemma-9b", smoke=True), **fp32)
+    tc = dataclasses.replace(
+        tconfigs.get_config("recurrentgemma-9b", smoke=True), **fp32)
+    jp = jm.init_params(jc, jax.random.PRNGKey(7))
+    return jc, tc, jp, convert_params(jax.tree.map(np.asarray, jp), tc)
+
+
+def test_hybrid_engine_matches_jax_engine(hybrid_models):
+    """Exact-length prefill, mixed RG-LRU states and a K/V ring of the
+    window spliced into each slot and decoded in place, token for token
+    as the JAX engine on the same weights.  Prompts have at least K-1 = 3
+    tokens (the JAX engine breaks on shorter ones, ROADMAP C4); several
+    are longer than the window, and prompt + budget wraps the ring."""
+    jc, tc, jp, tp = hybrid_models
+    rng = np.random.RandomState(11)
+    specs = [(3, 6), (12, 4), (20, 5), (5, 1), (9, 9), (4, 7), (16, 3)]
+    prompts = [rng.randint(1, tc.vocab_size, (n,)).astype(np.int32)
+               for n, _ in specs]
+    engine = ServeEngine(tc, tp, max_len=32, num_slots=3, device="cpu")
+    assert not engine.pad_prompts
+    jengine = js.ServeEngine(jc, jp, max_len=32, num_slots=3)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, (_, m)) in enumerate(zip(prompts, specs))]
+    jreqs = [js.Request(rid=i, prompt=p, max_new_tokens=m)
+             for i, (p, (_, m)) in enumerate(zip(prompts, specs))]
+    for r, jr in zip(reqs, jreqs):
+        engine.submit(r)
+        jengine.submit(jr)
+    done = engine.run_to_completion()
+    jengine.run_to_completion()
+    assert len(done) == len(reqs) and not engine.truncated
+    for r, jr in zip(reqs, jreqs):
+        assert len(r.generated) == r.max_new_tokens
+        assert r.generated == jr.generated, (r.rid, r.generated,
+                                             jr.generated)
+
+
+def test_hybrid_engine_matches_single_request_decode(hybrid_models):
+    """Short prompts too (1 and 2 tokens, below K-1): each request's tokens
+    equal the port's own single-request prefill and greedy decode."""
+    _, tc, _, tp = hybrid_models
+    rng = np.random.RandomState(12)
+    specs = [(1, 5), (2, 4), (11, 6)]
+    engine = ServeEngine(tc, tp, max_len=32, num_slots=2, device="cpu")
+    reqs = [Request(prompt=rng.randint(1, tc.vocab_size, (n,))
+                    .astype(np.int32), max_new_tokens=m) for n, m in specs]
+    for r in reqs:
+        engine.submit(r)
+    assert len(engine.run_to_completion()) == len(reqs)
+    for r in reqs:
+        toks = torch.as_tensor(r.prompt[None]).long()
+        logits, caches = prefill(tp, {"tokens": toks}, tc, max_len=32)
+        want = [int(logits[0, 0].argmax())]
+        while len(want) < r.max_new_tokens:
+            logits, caches = decode_step(tp, caches,
+                                         torch.tensor([want[-1]]), tc)
+            want.append(int(logits[0, 0].argmax()))
+        assert r.generated == want
+
+
+def test_launcher_serves_recurrentgemma_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu",
+                 "--requests", "3", "--max-new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert ("arch=recurrentgemma-9b-smoke" in out
+            and "served 3/3 requests" in out)

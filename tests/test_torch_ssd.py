@@ -8,8 +8,8 @@ sequential recurrence and the port's own sequential recurrence within
 tests/test_kernels.py plus a prompt shorter than the chunk.  The mixer
 (``repro_torch/models/ssd.py``) is held to the JAX one on carried weights
 for both projection layouts.  The CUDA kernel itself is held against the
-plain version on the card (``chip_smoke.py``; the last test here runs it
-where a card exists).
+plain version on the card (``chip_smoke.py`` and
+``tests/test_torch_card.py``).
 """
 import dataclasses
 
@@ -219,23 +219,3 @@ def test_init_block_layouts_match_reference_shapes():
             a = mine[k]["w"] if isinstance(mine[k], dict) else mine[k]
             b = carried[k]["w"] if isinstance(carried[k], dict) else carried[k]
             assert a.shape == b.shape and a.dtype == b.dtype, k
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
-                                       (torch.bfloat16, 3e-2)])
-def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol):
-    x, a, Bm, C = (v.to(cuda_device)
-                   for v in _t(*_inputs(1, 256, 32, 64, 1, 128)))
-    x, Bm, C = (v.to(dtype) for v in (x, Bm, C))
-    before = ops.ssd_scan.launches
-    got = ops.ssd_scan(x, a, Bm, C, chunk=128)
-    assert ops.ssd_scan.launches == before + 1
-    want = ops.ssd_scan(x, a, Bm, C, chunk=128, force_ref=True)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
