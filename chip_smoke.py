@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. device — the card's name and power limit (nvidia-smi); TF32 off.
-2. build — nvcc builds the four kernel sources from the checkout, one
+2. build — nvcc builds the five kernel sources from the checkout, one
    nvcc per source, started together; each build's time and ptxas
    register and spill lines.
 3. kernels — the flash-attention kernel against its plain PyTorch
@@ -33,17 +33,34 @@ Phases (any failure raises and the script exits non-zero):
    port's ``init_params`` on the meta device) at p = 4 emulated ranks:
    exactly 1 B1 and 1 B2 launch; equal to the exact sum and bitwise equal
    to the same call on ``native``.
-6. sort — ``examples/torch_sample_sort.py`` on ``ring`` at p = 8 with
+6. device-ring-kernels — the per-device ring allgather (B8a) and
+   reduce-scatter (B8b) on per-device ranks (``repro_torch.core.shard_map``:
+   one thread and one stream per rank, every kernel call one launch per
+   rank) against their plain versions and against B2/B1 on the stacked
+   input, bitwise, at p in {2, 3, 4, 8}, m in {1, 7, 4099, 2^20}, in fp32,
+   bf16, fp16, int32, int64 and uint8 (B8b: all but uint8), and with one
+   rank slowed by a spin kernel on its stream before the call (and, with
+   the spins bounded at 5 ms, that rank makes shard_map raise); then, at
+   the allreduce's p = 4 and 154,892,544 fp32 per chunk, bitwise once
+   more, and each rank's CUDA-event time per call (the slowest rank's) and
+   the wall clock per call beside the bytes bound, and the plain version's.
+7. allreduce-device — the same gradient-sized allreduce as 5, but on 4
+   per-device ranks (``shard_map``) on ``ring``: exactly 4 B8b and 4 B8a
+   launches and no B1/B2/B4; equal to the exact sum and bitwise equal to
+   ``native`` on per-device ranks, and, on random fp32, bitwise equal to
+   the emulated ranks' ring path (B3); wall clock per call, GB/s of
+   payload per rank, peak device memory.
+8. sort — ``examples/torch_sample_sort.py`` on ``ring`` at p = 8 with
    2^24 int32 keys per rank: exactly 1 B2 (splitters) and 2 B4 (buckets,
    counts transpose) launches; the output equals ``torch.sort``.
-7. serve — full-width qwen1.5-0.5B in bf16 (random weights from a seeded
+9. serve — full-width qwen1.5-0.5B in bf16 (random weights from a seeded
    ``torch.Generator``) answers 8 requests through
    ``repro_torch.serve.ServeEngine``; every launch counter is set to 0
    just before and read just after, and must show every kernel of the
    path launched (flash attention: prefills x 24 layers).  One request's
    prefill logits through the kernel match the plain-version path, and a
    small fp32 model on the card matches the same model on the CPU.
-8. ssd-kernel — the SSD chunked-scan kernel (B6) against its plain
+10. ssd-kernel — the SSD chunked-scan kernel (B6) against its plain
    version on the card: the JAX package's kernel-test shapes in fp32, the
    serve shapes (S = 100, 128, 256, 1024 at H = 32, P = 64, G = 1,
    N = 128) in fp32 and bf16, one G > 1 and one B > 1 shape, and S = 1024
@@ -51,23 +68,23 @@ Phases (any failure raises and the script exits non-zero):
    3e-4 (the reference's own tolerance); bf16 within half a bf16 ulp of
    the plain version in fp32 on the same inputs, plus 3e-4.  Card times
    at S = 128..1024 beside the plain version and the bound.
-9. serve-ssm — full-width mamba2-370m in bf16 (random weights from a
+11. serve-ssm — full-width mamba2-370m in bf16 (random weights from a
    seeded ``torch.Generator``) answers 8 requests (prompts of 100-1024
    tokens, 32 new tokens each) through ``ServeEngine``: exactly prefills
    x 48 SSD-scan launches and no other kernel; the 1024-token prompt's
    prefill logits through the kernel match the plain-version path (rel
    L2 < 2%), and a small fp32 mamba2 on the card matches the same model
    on the CPU within 1e-4.
-10. lru-kernel — the RG-LRU scan kernel (B7) against its plain version
+12. lru-kernel — the RG-LRU scan kernel (B7) against its plain version
    (the doubling scan) and the sequential loop on the card, within 1e-5
    in fp32: the JAX package's kernel-test shapes, recurrentgemma-9b's
    serve shapes (B = 1, C = 4096, S = 100, 1024, 2048, 2560), B = 3 with
    a ragged C and S, and S = 2560 with decays within 1e-3 of 1; card
    times at S = 2048 and 2560 beside the plain version and the bound.
-11. reference-hybrid — a small fp32 recurrentgemma (head_dim 256) on the
+13. reference-hybrid — a small fp32 recurrentgemma (head_dim 256) on the
    card (B7 and B5b) matches the same model on the CPU (plain versions)
    within 1e-4: prefill past the window and 4 decode steps.
-12. serve-hybrid — full-width recurrentgemma-9b in bf16 (random weights
+14. serve-hybrid — full-width recurrentgemma-9b in bf16 (random weights
    from a seeded ``torch.Generator``) answers 8 requests (prompts of
    100-2560 tokens, 32 new tokens each, max_len 3072, so prefill crosses
    the window of 2048 and decode wraps its ring) through ``ServeEngine``:
@@ -79,7 +96,8 @@ Phases (any failure raises and the script exits non-zero):
    fp32 logits.
 
 Every launch counter is set to 0 just before each main path (allreduce,
-sort, serve, serve_ssm, serve_hybrid) runs and read just after.  The
+allreduce_device, sort, serve, serve_ssm, serve_hybrid) runs and read
+just after.  The
 last lines are the card's name and power limit, one JSON object with the
 kernel table (``launches`` is the sum over the paths, ``launches_by_path``
 each path's own count; the flash kernel has one row per head-dim group),
@@ -104,7 +122,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import Communicator, op, send_buf, spmd  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    Communicator, KampingError, op, send_buf, shard_map, spmd)
+from repro_torch.core.spmd import bound_axis  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.collectives import ops as ring_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -182,6 +202,20 @@ RING_REPLACES = {
     "ring_allgather": "src/repro/kernels/collectives/collectives.py:69",
     "ring_alltoall": "src/repro/kernels/collectives/collectives.py:176",
 }
+# Per-device ring (B8) on per-device ranks (shard_map): p, m, dtypes of
+# the bitwise checks (B8b takes the summable ones: not uint8)
+DEVICE_PS = (2, 3, 4, 8)
+DEVICE_MS = (1, 7, 4099, 1 << 20)
+DEVICE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+                 torch.int64, torch.uint8)
+DEVICE_SOURCE = "src/repro_torch/kernels/collectives/csrc/device_ring.cu"
+DEVICE_REPLACES = {
+    "device_ring_allgather":
+        "src/repro/kernels/collectives/collectives.py:238",
+    "device_ring_reduce_scatter":
+        "src/repro/kernels/collectives/collectives.py:294",
+}
+DEVICE_ITERS = (5, 3)  # timed calls of the kernel, of the plain version
 
 # SSD scan (B6): (B, S, H, P, G, N, chunk).  The JAX package's kernel-test
 # shapes (tests/test_kernels.py), then the serve shapes of mamba2-370m
@@ -472,8 +506,7 @@ def phase_serve():
     if launches != prefills * cfg.num_layers or launches == 0:
         raise AssertionError(f"flash launches {launches} != prefills "
                              f"{prefills} x {cfg.num_layers} layers")
-    if any(counts[name] for name in (*RING_REPLACES, "ssd_scan",
-                                     "lru_scan")):
+    if any(counts[name] for name in counts if name != "flash_attention"):
         raise AssertionError(f"serve launched another kernel: {counts}")
     decode_tokens = engine.counters["decode_tokens"]
     ph = engine.phase_seconds
@@ -546,6 +579,7 @@ def _leaves(tree):
 def _counters():
     return {"flash_attention": flash_ops.flash_attention,
             **{name: getattr(ring_ops, name) for name in RING_REPLACES},
+            **{name: getattr(ring_ops, name) for name in DEVICE_REPLACES},
             "ssd_scan": ssd_ops.ssd_scan, "lru_scan": lru_ops.lru_scan}
 
 
@@ -557,6 +591,14 @@ def read_counts():
 def zero_counts():
     for fn in _counters().values():
         fn.launches = 0
+
+
+def expect_launches(path, launches, **want):
+    """Exactly ``want`` launches of the named kernels, none of the others."""
+    expected = {name: want.get(name, 0) for name in launches}
+    if launches != expected:
+        raise AssertionError(f"{path} launches {launches}: expected "
+                             f"{want} and no other kernel")
 
 
 def ring_input(shape, dtype, gen):
@@ -714,11 +756,8 @@ def phase_allreduce():
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"flash_attention": 0, "ring_reduce_scatter": 1,
-                    "ring_allgather": 1, "ring_alltoall": 0, "ssd_scan": 0,
-                    "lru_scan": 0}:
-        raise AssertionError(f"allreduce launches {launches}: expected 1 B1 "
-                             "and 1 B2")
+    expect_launches("allreduce", launches, ring_reduce_scatter=1,
+                    ring_allgather=1)
     if out.shape != g.shape or out.dtype != g.dtype:
         raise AssertionError(f"allreduce result {tuple(out.shape)}")
     step = 1 << 26
@@ -753,6 +792,250 @@ def phase_allreduce():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# per-device ring (B8) on per-device ranks
+# ---------------------------------------------------------------------------
+def b8_run(xs, slow=None, summable=True):
+    """B8a on slot 0 and B8b on the whole (p, m) of every rank, kernel and
+    plain version, in one shard_map; rank ``slow`` first runs a spin
+    kernel (~50 ms) on its stream."""
+    def fn(v):
+        ring = bound_axis("x").ranks
+        if ring.rank == slow:
+            torch.cuda._sleep(100_000_000)
+        x0 = v[0].contiguous()
+        outs = [ring_ops.device_ring_allgather(x0, ring),
+                ring_ops.device_ring_allgather(x0, ring, force_ref=True)]
+        if summable:
+            outs += [ring_ops.device_ring_reduce_scatter(v, ring),
+                     ring_ops.device_ring_reduce_scatter(v, ring,
+                                                         force_ref=True)]
+        return tuple(outs)
+
+    return shard_map(fn, xs, axis_name="x")
+
+
+def phase_device_ring_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err = {name: 0.0 for name in DEVICE_REPLACES}
+    n_checks = 0
+
+    def check(xs, slow=None):
+        nonlocal n_checks
+        summable = xs.dtype != torch.uint8
+        before = read_counts()
+        outs = b8_run(xs, slow=slow, summable=summable)
+        p = xs.shape[0]
+        launched = {name: read_counts()[name] - before[name]
+                    for name in DEVICE_REPLACES}
+        if launched != {"device_ring_allgather": p,
+                        "device_ring_reduce_scatter": p if summable else 0}:
+            raise AssertionError(f"B8 launches {launched} at p={p}: "
+                                 "expected one per rank per call")
+        # B2 has no uint8 kernel: there its plain version is the yardstick
+        checks = [("device_ring_allgather", outs[0], outs[1]),
+                  ("device_ring_allgather", outs[0], ring_ops.ring_allgather(
+                      xs[:, 0].contiguous(), force_ref=not summable))]
+        if summable:
+            checks += [("device_ring_reduce_scatter", outs[2], outs[3]),
+                       ("device_ring_reduce_scatter", outs[2],
+                        ring_ops.ring_reduce_scatter(xs))]
+        for name, got, want in checks:
+            same, e = bitwise(got, want)
+            n_checks += 1
+            if not same:
+                raise AssertionError(
+                    f"{name} disagrees: {str(xs.dtype)[6:]} p={p} "
+                    f"m={xs.shape[2]} slow={slow} max_abs_err={e}")
+            err[name] = max(err[name], e)
+
+    for dtype in DEVICE_DTYPES:
+        for p in DEVICE_PS:
+            for m in DEVICE_MS:
+                check(ring_input((p, p, m), dtype, gen))
+    print(f"  {n_checks} checks bitwise equal (kernel = plain version = "
+          f"B2/B1 on the stacked input): p in {list(DEVICE_PS)}, m in "
+          f"{list(DEVICE_MS)}, {len(DEVICE_DTYPES)} dtypes; one launch per "
+          f"rank per call")
+    for p, slow in ((4, 2), (8, 5)):
+        check(ring_input((p, p, 1 << 20), torch.float32, gen), slow=slow)
+        print(f"  p={p} m={1 << 20} fp32 with rank {slow} slowed by a ~50 ms "
+              "spin kernel on its stream: bitwise equal")
+    # with the spins bounded at 5 ms, the same slowed rank must make every
+    # spin run out and shard_map raise, not hang or return a result
+    saved = ring_ops.SPIN_TIMEOUT_S
+    ring_ops.SPIN_TIMEOUT_S = 0.005
+    try:
+        b8_run(ring_input((4, 4, 1 << 20), torch.float32, gen), slow=1)
+    except KampingError as e:
+        if "spin ran out" not in str(e):
+            raise
+        print(f"  spins bounded at 5 ms, rank 1 slowed: shard_map raised "
+              f"({str(e)[:110]}...)")
+    else:
+        raise AssertionError("a device ring spin that ran out did not raise")
+    finally:
+        ring_ops.SPIN_TIMEOUT_S = saved
+    torch.cuda.empty_cache()
+    return time_device_ring(gen, err)
+
+
+def time_device_ring(gen, err):
+    """B8a/B8b at the allreduce's p = 4 and chunk: bitwise against their
+    plain versions, then each rank's CUDA-event time per call (kernel
+    launches back to back on its stream; the slowest rank is reported) and
+    the wall clock per call, for the kernel and the plain version."""
+    p = ALLREDUCE_RANKS
+    m = allreduce_elements() // p
+    xs = ring_input((p, p, m), torch.float32, gen)
+    iters = DEVICE_ITERS
+    names = list(DEVICE_REPLACES)
+
+    def timed(ring, call, n):
+        stream = torch.cuda.current_stream()
+        ring.barrier()
+        stream.synchronize()
+        ring.exchange(None)  # every rank idle
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record(stream)
+        for _ in range(n):
+            call()
+        end.record(stream)
+        stream.synchronize()
+        wall = time.perf_counter() - t0
+        return start.elapsed_time(end) / n, wall * 1e3 / n
+
+    def fn(v):
+        ring = bound_axis("data").ranks
+        x0 = v[0].contiguous()
+        calls = {
+            "device_ring_allgather": lambda force: ring_ops.
+            device_ring_allgather(x0, ring, force_ref=force),
+            "device_ring_reduce_scatter": lambda force: ring_ops.
+            device_ring_reduce_scatter(v, ring, force_ref=force),
+        }
+        vals = []
+        for name in names:
+            call = calls[name]
+            same = torch.equal(call(False), call(True))
+            ms, wall = timed(ring, lambda: call(False), iters[0])
+            plain_ms, plain_wall = timed(ring, lambda: call(True), iters[1])
+            vals += [float(same), ms, wall, plain_ms, plain_wall]
+        return torch.tensor(vals, dtype=torch.float64)
+
+    before = read_counts()
+    res = shard_map(fn, xs, axis_name="data").cpu()
+    del xs
+    torch.cuda.empty_cache()
+    rows = {}
+    for k, name in enumerate(names):
+        launched = read_counts()[name] - before[name]
+        if launched != p * (1 + iters[0]):
+            raise AssertionError(f"{name}: {launched} launches for "
+                                 f"{1 + iters[0]} calls over {p} ranks")
+        same, ms, wall, plain_ms, plain_wall = (
+            res[:, 5 * k + j] for j in range(5))
+        if not bool(same.all()):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at p={p} m={m}: ranks {same.tolist()}")
+        stacked = ("ring_allgather" if name == "device_ring_allgather"
+                   else "ring_reduce_scatter")
+        bound_ms, nbytes = ring_bound(stacked, p, m, torch.float32)
+        row = dict(max_abs_err=err[name], ms=float(ms.max()),
+                   plain_ms=float(plain_ms.max()), bound_ms=bound_ms,
+                   bound_by="bytes", library_ms=None,
+                   wall_ms=float(wall.max()),
+                   plain_wall_ms=float(plain_wall.max()))
+        print(f"  {name} p={p} m={m} fp32: bitwise equal to its plain "
+              f"version on every rank")
+        print(f"  time {name} p={p} m={m} fp32 (card, CUDA events on each "
+              f"rank's stream, {iters[0]} calls back to back): slowest rank "
+              f"{row['ms']:.5f} ms per call (ranks "
+              f"{', '.join(f'{t:.5f}' for t in ms.tolist())}), wall clock "
+              f"{row['wall_ms']:.5f} ms per call; plain version "
+              f"{row['plain_ms']:.5f} ms (wall {row['plain_wall_ms']:.5f} "
+              f"ms); bound {bound_ms:.5f} ms (bytes, {nbytes / 1e9:.3f} GB "
+              f"as {stacked} on the stacked payload) -> "
+              f"{bound_ms / row['ms']:.1%} of the bound; 1 launch per rank "
+              f"per call")
+        rows[name] = row
+    return rows
+
+
+def phase_allreduce_device():
+    """The gradient allreduce of phase 5 on per-device ranks on ring."""
+    p, n = ALLREDUCE_RANKS, allreduce_elements()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    # small integers in fp32: every sum is exact, whatever its order
+    g = torch.randint(-8, 8, (p, n), generator=gen, device="cuda",
+                      dtype=torch.float32)
+
+    def reduce(transport, data, run=shard_map):
+        return run(lambda v: Communicator("data", transport=transport)
+                   .allreduce(send_buf(v), op(operator.add)), data,
+                   axis_name="data")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = reduce("ring", g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("allreduce_device", launches, device_ring_allgather=p,
+                    device_ring_reduce_scatter=p)
+    if out.shape != g.shape or out.dtype != g.dtype:
+        raise AssertionError(f"allreduce_device result {tuple(out.shape)}")
+    step = 1 << 26
+    for lo in range(0, n, step):  # exact sum, column block by block
+        want = g[:, lo:lo + step].double().sum(0).float()
+        if not torch.equal(out[:, lo:lo + step], want.expand(p, -1)):
+            raise AssertionError(f"allreduce_device differs from the exact "
+                                 f"sum in columns {lo}..{lo + step}")
+    walls = []
+    for _ in range(3):
+        del out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce("ring", g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    native = reduce("native", g)
+    torch.cuda.synchronize()
+    if not torch.equal(out, native):
+        raise AssertionError("per-device ring and native allreduce differ")
+    del out, native, g
+    torch.cuda.empty_cache()
+    g = torch.randn((p, n), generator=gen, device="cuda")
+    dev = reduce("ring", g)
+    emulated = reduce("ring", g, run=spmd)
+    torch.cuda.synchronize()
+    if not torch.equal(dev, emulated):
+        raise AssertionError("per-device ring allreduce differs from the "
+                             "emulated ranks' ring allreduce (B3) on random "
+                             "fp32")
+    del dev, emulated, g
+    torch.cuda.empty_cache()
+    gb = n * 4 / 1e9
+    print(f"  allreduce of {n} fp32 elements ({gb:.3f} GB per rank) over "
+          f"{p} per-device ranks (shard_map) on ring: launches {launches}; "
+          f"first call {wall * 1e3:.3f} ms, then "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms (wall clock per "
+          f"call, from the (p, n) input to the stacked result; "
+          f"{gb / min(walls):.1f} GB/s of payload per rank at the best); "
+          f"peak device memory {peak / 1e9:.3f} GB "
+          f"({(peak - base) / 1e9:.3f} GB above the input); equal to the "
+          "exact sum and bitwise equal to native on per-device ranks, and on "
+          "random fp32 bitwise equal to the emulated ranks' ring path (B3)")
+    return launches
+
+
 def phase_sort():
     """The paper's sample sort (examples/torch_sample_sort.py) on ring."""
     path = os.path.join(HERE, "examples", "torch_sample_sort.py")
@@ -772,11 +1055,7 @@ def phase_sort():
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"flash_attention": 0, "ring_reduce_scatter": 0,
-                    "ring_allgather": 1, "ring_alltoall": 2, "ssd_scan": 0,
-                    "lru_scan": 0}:
-        raise AssertionError(f"sort launches {launches}: expected 1 B2 and "
-                             "2 B4")
+    expect_launches("sort", launches, ring_allgather=1, ring_alltoall=2)
     out = sort.gather_sorted(merged, valid)
     if not torch.equal(out, torch.sort(data.reshape(-1)).values):
         raise AssertionError("sample sort differs from torch.sort")
@@ -1303,8 +1582,8 @@ def main() -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}")
 
-    sources = (flash_ops.SOURCE, ring_ops.SOURCE, ssd_ops.SOURCE,
-               lru_ops.SOURCE)
+    sources = (flash_ops.SOURCE, ring_ops.SOURCE, ring_ops.DEVICE_SOURCE,
+               ssd_ops.SOURCE, lru_ops.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         recs = list(pool.map(build, sources))
     for source, rec in zip(sources, recs):
@@ -1325,6 +1604,10 @@ def main() -> int:
     paths = {}
     print("[allreduce]")
     paths["allreduce"] = phase_allreduce()
+    print("[device-ring-kernels]")
+    device_rows = phase_device_ring_kernels()
+    print("[allreduce-device]")
+    paths["allreduce_device"] = phase_allreduce_device()
     print("[sort]")
     paths["sort"] = phase_sort()
     print("[serve]")
@@ -1371,6 +1654,10 @@ def main() -> int:
         table["kernels"].append(dict(
             name=name, route="cuda", source=RING_SOURCE,
             replaces=RING_REPLACES[name], **launches(name), **row))
+    for name, row in device_rows.items():
+        table["kernels"].append(dict(
+            name=name, route="cuda", source=DEVICE_SOURCE,
+            replaces=DEVICE_REPLACES[name], **launches(name), **row))
     ssd_row = ssd_rows[-1]  # S = 1024, the longest serve prompt
     table["kernels"].append(dict(
         name="ssd_scan", route="cuda", source=SSD_SOURCE,

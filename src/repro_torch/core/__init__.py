@@ -3,7 +3,10 @@
 Ported: parameters, results, non-blocking results and request pools,
 static block splits, the ``native`` and ``ring`` transports, all 16 rows
 of the op-spec table with their ``i*`` variants, ``with_flattened`` and
-explicit serialization.
+explicit serialization.  Ranks run emulated over a stacked dimension
+(``spmd``, the counterpart of ``jax.vmap(axis_name=)``) or per device, one
+thread and stream each (``shard_map``, the counterpart of
+``jax.shard_map``).
 """
 from .communicator import Communicator
 from .errors import (
@@ -62,6 +65,7 @@ from .serialization import (
     host_pack,
     host_unpack,
 )
+from .shard import shard_map
 from .spmd import spmd
 from .transports import (
     NativeTransport,

@@ -9,26 +9,33 @@ runs.  A binding records the axis size, the per-rank index (a batched
 scalar, what ``lax.axis_index`` returns) and the functorch level of the
 vmap, so a collective can check that the rank dimension it is about to
 reduce over is the innermost one.
+
+:func:`~repro_torch.core.shard.shard_map` binds a name per rank thread
+instead (:func:`bind_rank`): the index is this rank's own 0-d tensor, no
+vmap level is recorded, and ``ranks`` is the rank's side of the host
+rendezvous the per-device collectives meet at.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
-from typing import Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from .errors import KampingError
 
-__all__ = ["spmd", "bound_axis", "rank_tensor"]
+__all__ = ["spmd", "bound_axis", "bind_rank", "rank_tensor"]
 
 
 @dataclasses.dataclass(frozen=True)
 class _Axis:
     name: str
     size: int
-    index: torch.Tensor  # batched per-rank index (0-d int64 per rank)
-    level: int
+    index: torch.Tensor  # per-rank index (0-d int64 per rank)
+    level: Optional[int]  # vmap level; None for a per-device rank
+    ranks: Any = None  # shard.Rank of a per-device rank, else None
 
 
 _BOUND: contextvars.ContextVar[Tuple[_Axis, ...]] = contextvars.ContextVar(
@@ -81,6 +88,18 @@ def spmd(fn: Callable, *args, axis_name: str = "x"):
     return torch.func.vmap(body)(torch.arange(p, device=device), *args)
 
 
+@contextlib.contextmanager
+def bind_rank(name: str, rank, index: torch.Tensor):
+    """Bind ``name`` to one per-device rank (``rank``, a
+    :class:`~repro_torch.core.shard.Rank`) while the block runs."""
+    token = _BOUND.set(_BOUND.get() + (_Axis(name, rank.size, index, None,
+                                             rank),))
+    try:
+        yield
+    finally:
+        _BOUND.reset(token)
+
+
 def bound_axis(name) -> _Axis:
     """The binding of ``name``; raises unless ``name`` is the innermost
     vmap level at the call (a collective must see its own rank dim)."""
@@ -95,7 +114,8 @@ def bound_axis(name) -> _Axis:
             return ax
     raise KampingError(
         f"unbound axis name {name!r}: collectives run inside "
-        "repro_torch.core.spmd(fn, ..., axis_name=...)"
+        "repro_torch.core.spmd or repro_torch.core.shard_map(fn, ..., "
+        "axis_name=...)"
     )
 
 

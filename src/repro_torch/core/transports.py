@@ -14,6 +14,10 @@ communicator's group scope (``comm.groups``).
 Every primitive is one :class:`torch.autograd.Function` whose ``vmap``
 staticmethod sees the whole ``(p, ...)`` tensor of the emulated ranks
 (:mod:`repro_torch.core.spmd`) and computes every rank's result from it.
+Under :func:`~repro_torch.core.shard.shard_map` (per-device ranks, one
+thread each) a primitive has a per-device form instead: each rank
+computes its own result from its own tensor and what the other ranks
+share at a rendezvous.
 
 Backends:
 
@@ -29,6 +33,21 @@ Backends:
   is.  A ``split_by(block=g)`` communicator's groups are contiguous, so
   the rule views ``(p, ...)`` as ``p/g`` independent rings of length
   ``g`` and runs one kernel over the batch.
+
+Per-device forms:
+
+* ``native`` — each rank posts its tensor (and, on CUDA, an event on its
+  stream), its stream waits on the others' events, and it folds or picks
+  its own result in rank order from every rank's tensor; then all ranks
+  meet once more, so no rank overwrites a tensor another still reads.
+  Results are bitwise equal to the emulated ranks'.
+* ``ring`` — ``all_gather`` is B8a and ``reduce_scatter_sum`` B8b, the
+  per-device ring kernels; ``allreduce_sum`` is B8b then B8a;
+  ``all_to_all`` runs the plain offset ring schedule (the JAX package
+  keeps its ``ref.ring_alltoall`` even on the TPU).  Only flat
+  communicators: the per-device ring is the ranks' own order, so a split
+  communicator raises, as the JAX package's ``_check_device_groups``
+  does.
 """
 from __future__ import annotations
 
@@ -37,6 +56,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from ..kernels.collectives import ops as ring_ops
+from ..kernels.collectives import ref as ring_ref
 from .errors import KampingError
 from .spmd import bound_axis, rank_tensor
 
@@ -97,11 +117,33 @@ class _Primitive(torch.autograd.Function):
         return rule(_stacked(info, in_dims[0], x)), 0
 
 
-def _apply(comm, x, rule, name, adjoint=None):
-    """Run ``rule`` over the stacked ranks of ``comm``'s bound axis."""
-    index = bound_axis(comm.axis).index
-    x = rank_tensor(x, index.device, name)
-    return _Primitive.apply(x, index, rule,
+class _Local(torch.autograd.Function):
+    """One collective on one per-device rank: ``local(x, ranks)`` computes
+    this rank's result, meeting the other ranks through ``ranks``."""
+
+    @staticmethod
+    def forward(x, ranks, local, name):
+        return local(x, ranks)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.name = inputs[3]
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            f"gradient of {ctx.name} on per-device ranks (shard_map) is not "
+            "ported yet (ROADMAP A2)")
+
+
+def _apply(comm, x, rule, name, adjoint=None, local=None):
+    """Run ``rule`` over the stacked ranks of ``comm``'s bound axis, or
+    ``local`` on this rank when the axis is bound to per-device ranks."""
+    ax = bound_axis(comm.axis)
+    x = rank_tensor(x, ax.index.device, name)
+    if ax.ranks is not None:
+        return _Local.apply(x, ax.ranks, local, name)
+    return _Primitive.apply(x, ax.index, rule,
                             adjoint if adjoint is not None else name)
 
 
@@ -137,6 +179,36 @@ def _fold_rows(rows, fn):
     for j in range(1, rows.shape[1]):
         acc = fn(acc, rows[:, j])
     return acc
+
+
+# Per-device counterparts: rank r's own rows from every rank's tensor xs.
+def _local_rows(tables, xs, r, exchange=False):
+    """Rank ``r``'s row of ``_gather_rows`` (``exchange=False``) or of
+    ``_exchange_rows`` (``exchange=True``), as a list over its group."""
+    members = range(len(xs)) if tables is None else tables.members[r]
+    if not exchange:
+        return [xs[int(j)] for j in members]
+    slot = r if tables is None else int(tables.group_rank[r])
+    return [xs[int(j)][slot] for j in members]
+
+
+def _fold_list(rows, fn):
+    """Left fold in group-rank order; a fresh tensor even for one row."""
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = fn(acc, row)
+    return acc.clone() if len(rows) == 1 else acc
+
+
+def _on_ranks(compute):
+    """The per-device form of a native primitive: ``compute(xs, r)`` is
+    rank ``r``'s result from every rank's tensor ``xs``."""
+    def local(x, ranks):
+        out = compute(ranks.share(x), ranks.rank)
+        ranks.barrier()  # every rank has read before any writes again
+        return out
+
+    return local
 
 
 class Transport:
@@ -186,20 +258,26 @@ class NativeTransport(Transport):
     def all_gather(self, comm, x, *, tiled: bool = True):
         tables = _tables(comm)
         out = _apply(comm, x, lambda X: _gather_rows(X, tables).contiguous(),
-                     "allgather")
+                     "allgather", local=_on_ranks(
+                         lambda xs, r: torch.stack(_local_rows(tables, xs,
+                                                               r))))
         return _tile(out, tiled)
 
     def all_to_all(self, comm, x):
         tables = _tables(comm)
         return _apply(comm, x, lambda X: _exchange_rows(X, tables),
-                      "alltoall")
+                      "alltoall", local=_on_ranks(
+                          lambda xs, r: torch.stack(
+                              _local_rows(tables, xs, r, exchange=True))))
 
     def reduce_scatter_sum(self, comm, x):
         tables = _tables(comm)
         return _apply(
             comm, x,
             lambda X: _fold_rows(_exchange_rows(X, tables), torch.add),
-            "reduce_scatter",
+            "reduce_scatter", local=_on_ranks(
+                lambda xs, r: _fold_list(
+                    _local_rows(tables, xs, r, exchange=True), torch.add)),
         )
 
     def _fold(self, comm, x, kind):
@@ -215,7 +293,9 @@ class NativeTransport(Transport):
         # The sum allreduce is its own adjoint: d/dx_r of sum_q f(sum_j x_j)
         # is the allreduce of the per-rank cotangents.
         return _apply(comm, x, rule, f"a {kind} allreduce",
-                      adjoint=rule if kind == "sum" else None)
+                      adjoint=rule if kind == "sum" else None,
+                      local=_on_ranks(lambda xs, r: _fold_list(
+                          _local_rows(tables, xs, r), fn)))
 
     def allreduce_sum(self, comm, x):
         return self._fold(comm, x, "sum")
@@ -244,12 +324,16 @@ class NativeTransport(Transport):
                     X[torch.as_tensor(src, device=X.device)]
             return out
 
-        return _apply(comm, x, rule, "send_recv")
+        def pick(xs, r):
+            srcs = [s for s, d in pairs if d == r]
+            return xs[srcs[-1]].clone() if srcs else torch.zeros_like(xs[r])
+
+        return _apply(comm, x, rule, "send_recv", local=_on_ranks(pick))
 
 
 class RingTransport(Transport):
-    """The ring kernels B1, B2, B4 and their composition B3 (see module
-    docstring).  Single-axis communicators only: the ring order is defined
+    """The ring kernels B1, B2, B4 and their composition B3, and on
+    per-device ranks B8a and B8b (see module docstring).  Single-axis communicators only: the ring order is defined
     over one axis."""
 
     name = "ring"
@@ -273,8 +357,17 @@ class RingTransport(Transport):
             )
         return P // g
 
-    def _run(self, comm, x, kernel, name):
+    def _run(self, comm, x, kernel, local_kernel, name):
         rings = self._rings(comm)
+
+        def local(v, ranks):
+            if comm.groups is not None:
+                raise KampingError(
+                    f"{name}: the per-device ring kernels do not support "
+                    "process groups (the ring is the ranks' own order); use "
+                    "transport('native') on the split communicator")
+            return local_kernel(v.contiguous(), ranks)
+
         # A value that is the same on every rank arrives unbatched and
         # _stacked expands it with stride 0; the kernels read a dense
         # stack, so .contiguous() materialises it — a real copy of p times
@@ -282,21 +375,25 @@ class RingTransport(Transport):
         # a batched value it is free.
         return _apply(comm, x,
                       lambda X: kernel(X.contiguous(), rings=rings),
-                      f"{name} (ring)")
+                      f"{name} (ring)", local=local)
 
     def all_gather(self, comm, x, *, tiled: bool = True):
         return _tile(self._run(comm, x, ring_ops.ring_allgather,
-                               "allgather"), tiled)
+                               ring_ops.device_ring_allgather, "allgather"),
+                     tiled)
 
     def all_to_all(self, comm, x):
-        return self._run(comm, x, ring_ops.ring_alltoall, "alltoall")
+        return self._run(comm, x, ring_ops.ring_alltoall,
+                         ring_ref.device_alltoall_ref, "alltoall")
 
     def reduce_scatter_sum(self, comm, x):
         return self._run(comm, x, ring_ops.ring_reduce_scatter,
+                         ring_ops.device_ring_reduce_scatter,
                          "reduce_scatter")
 
     def allreduce_sum(self, comm, x):
-        return self._run(comm, x, ring_ops.ring_allreduce, "a sum allreduce")
+        return self._run(comm, x, ring_ops.ring_allreduce,
+                         ring_ops.device_ring_allreduce, "a sum allreduce")
 
 
 # --------------------------------------------------------------------------

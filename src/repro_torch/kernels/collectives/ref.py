@@ -11,6 +11,17 @@ bit, and what the wrappers in ``ops.py`` compute for a CPU tensor.
 The reduce-scatter keeps the ring's fold order: chunk ``r`` starts at
 rank ``(r+1) % p`` and adds sources ``r+1, r+2, ..., r`` (mod p) left to
 right, each add rounded to the payload's dtype.
+
+The ``device_*`` functions are the per-device forms, run by every rank of
+a :func:`~repro_torch.core.shard.shard_map` on its own tensor: the
+counterparts of the JAX package's SPMD ring references
+(``kernels/collectives/ref.py:105`` ``ring_allgather`` and ``:128``
+``ring_reduce_scatter``), step for step in the arrival and fold order of
+the per-device kernels B8a and B8b (``csrc/device_ring.cu``).  ``ring`` is
+this rank's side of the rendezvous (``core.shard.Rank``): ``rank``,
+``size``, ``share(t)`` (every rank's ``t``, readable on this rank's
+stream) and ``barrier()`` (every rank's stream has reached this point).
+A step pushes into the right neighbour's buffer, then all ranks meet.
 """
 from __future__ import annotations
 
@@ -26,6 +37,9 @@ __all__ = [
     "reduce_scatter_stacked_ref",
     "allreduce_stacked_ref",
     "alltoall_stacked_ref",
+    "device_allgather_ref",
+    "device_reduce_scatter_ref",
+    "device_alltoall_ref",
 ]
 
 
@@ -116,3 +130,69 @@ def alltoall_stacked_ref(xs, rings: int = 1):
         raise ValueError(f"alltoall: expected (rings*p, p, ...) with p={p}; "
                          f"got {tuple(xs.shape)}")
     return X.transpose(1, 2).contiguous().reshape(xs.shape)
+
+
+def device_allgather_ref(x, ring):
+    """This rank's ``(...)`` -> ``(p, ...)``, slot ``j`` holding rank
+    ``j``'s ``x``.  Step ``s`` pushes slot ``(me - s) % p`` into the right
+    neighbour's output at the same slot: the chunk of the s-th left
+    neighbour, which arrived at step ``s - 1``."""
+    p, me = ring.size, ring.rank
+    if p == 1:
+        return x[None].clone()
+    out = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    out[me] = x
+    right = ring.share(out)[(me + 1) % p]
+    for s in range(p - 1):
+        src = (me - s) % p
+        right[src].copy_(out[src])
+        ring.barrier()
+    return out
+
+
+def device_reduce_scatter_ref(x, ring):
+    """This rank's ``(p, ...)`` contributions by destination -> its reduced
+    ``(...)`` chunk.  Step 0 sends chunk ``(me - 1) % p`` of ``x`` to the
+    right neighbour's receive slot 0; step ``s`` adds chunk
+    ``(me - 1 - s) % p`` to the partial that arrived in slot
+    ``(s - 1) % 2`` and sends the sum on to slot ``s % 2`` (the last step
+    keeps it).  Chunk ``j`` thus folds sources ``j+1, ..., j``: B1's and
+    the JAX reference's order."""
+    p, me = ring.size, ring.rank
+    if x.dim() == 0 or x.shape[0] != p:
+        raise ValueError(f"device reduce_scatter: expected ({p}, ...); got "
+                         f"{tuple(x.shape)}")
+    if p == 1:
+        return x[0].clone()
+    buf = torch.empty((2,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    right = ring.share(buf)[(me + 1) % p]
+    right[0].copy_(x[(me - 1) % p])
+    ring.barrier()
+    for s in range(1, p):
+        acc = buf[(s - 1) % 2] + x[(me - 1 - s) % p]
+        if s == p - 1:
+            return acc
+        right[s % 2].copy_(acc)
+        ring.barrier()
+
+
+def device_alltoall_ref(x, ring):
+    """This rank's ``(p, ...)`` buckets by destination -> ``(p, ...)`` by
+    source, in the offset schedule of the JAX package's
+    ``ring_alltoall``: at offset ``s`` bucket ``(me + s) % p`` goes to rank
+    ``(me + s) % p``'s slot ``me``."""
+    p, me = ring.size, ring.rank
+    if x.dim() == 0 or x.shape[0] != p:
+        raise ValueError(f"device alltoall: expected ({p}, ...); got "
+                         f"{tuple(x.shape)}")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    out[me] = x[me]
+    if p == 1:
+        return out
+    outs = ring.share(out)
+    for s in range(1, p):
+        dst = (me + s) % p
+        outs[dst][me].copy_(x[dst])
+    ring.barrier()
+    return out

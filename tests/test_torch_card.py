@@ -10,6 +10,10 @@ machine with a card and no JAX, from the root of a checkout::
 Kernels and tolerances:
 
 * B1/B2/B3/B4 ring collectives: bitwise (``torch.equal``);
+* B8a/B8b per-device ring collectives on per-device ranks
+  (``repro_torch.core.shard_map``): bitwise against their plain versions
+  and B2/B1, one launch per rank per call, also with one rank slowed by a
+  spin kernel on its stream;
 * B5 flash attention at head_dim 64 and 128: 2e-5 in fp32, 3e-2 in bf16
   (tests/test_kernels.py:37,40); B5b at head_dim 256 (MQA 16:1 over a
   window, recurrentgemma's local attention): the same;
@@ -26,6 +30,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import KampingError, shard_map  # noqa: E402
+from repro_torch.core.spmd import bound_axis  # noqa: E402
 from repro_torch.kernels.collectives import ops as ring_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as lru_ops  # noqa: E402
@@ -56,6 +62,69 @@ def test_ring_kernels_match_plain_versions(cuda_device, dtype):
                       (ring_ops.ring_allreduce, xs[:, 0].contiguous())):
             assert torch.equal(fn(x, rings=rings),
                                fn(x, rings=rings, force_ref=True))
+
+
+# -- per-device ring collectives (B8a, B8b) -----------------------------------
+def _b8(xs, slow=None, summable=True):
+    """B8a on slot 0 and B8b on the whole (p, m) of every rank, kernel and
+    plain version, in one shard_map; rank ``slow`` first spins ~50 ms on
+    its stream."""
+    def fn(v):
+        ring = bound_axis("x").ranks
+        if ring.rank == slow:
+            torch.cuda._sleep(100_000_000)
+        x0 = v[0].contiguous()
+        outs = [ring_ops.device_ring_allgather(x0, ring),
+                ring_ops.device_ring_allgather(x0, ring, force_ref=True)]
+        if summable:
+            outs += [ring_ops.device_ring_reduce_scatter(v, ring),
+                     ring_ops.device_ring_reduce_scatter(v, ring,
+                                                         force_ref=True)]
+        return tuple(outs)
+
+    return shard_map(fn, xs, timeout=60)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+def test_device_ring_kernels_match_plain_versions(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    summable = dtype != torch.uint8
+    for p, m in ((2, 7), (3, 4099), (4, 1 << 16), (8, 1)):
+        xs = torch.randint(0, 100, (p, p, m), generator=g,
+                           device=cuda_device).to(dtype)
+        before = (ring_ops.device_ring_allgather.launches,
+                  ring_ops.device_ring_reduce_scatter.launches)
+        outs = _b8(xs, summable=summable)
+        assert ring_ops.device_ring_allgather.launches == before[0] + p
+        assert torch.equal(outs[0], outs[1])
+        assert torch.equal(outs[0], ring_ops.ring_allgather(
+            xs[:, 0].contiguous(), force_ref=not summable))
+        if summable:
+            assert ring_ops.device_ring_reduce_scatter.launches == \
+                before[1] + p
+            assert torch.equal(outs[2], outs[3])
+            assert torch.equal(outs[2], ring_ops.ring_reduce_scatter(xs))
+
+
+@pytest.mark.parametrize("slow", [0, 3])
+def test_device_ring_kernels_with_a_slowed_rank(cuda_device, slow):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    xs = torch.randn((4, 4, 1 << 20), generator=g, device=cuda_device)
+    outs = _b8(xs, slow=slow)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[2], outs[3])
+    assert torch.equal(outs[2], ring_ops.ring_reduce_scatter(xs))
+
+
+def test_device_ring_spin_that_runs_out_raises(cuda_device, monkeypatch):
+    """With every spin bounded at 5 ms, a rank slowed by ~50 ms makes its
+    neighbours' spins run out: shard_map raises instead of hanging or
+    returning the result."""
+    monkeypatch.setattr(ring_ops, "SPIN_TIMEOUT_S", 0.005)
+    xs = torch.zeros((4, 4, 1 << 20), device=cuda_device)
+    with pytest.raises(KampingError, match="spin ran out"):
+        _b8(xs, slow=1)
 
 
 # -- flash attention (B5, B5b) ------------------------------------------------

@@ -50,6 +50,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.kernels.ssd.ops", "repro_torch.models.ssd",
                  "repro_torch.kernels.rg_lru.ops", "repro_torch.models.rglru",
                  "repro_torch.core.flatten", "repro_torch.core.serialization",
+                 "repro_torch.core.shard",
                  "torch_quickstart.py", "torch_sample_sort.py"):
         assert name in out.stdout
 
