@@ -38,12 +38,15 @@ Phases (any failure raises and the script exits non-zero):
    one thread and one stream per rank, every kernel call one launch per
    rank) against their plain versions and against B2/B1 on the stacked
    input, bitwise, at p in {2, 3, 4, 8}, m in {1, 7, 4099, 2^20}, in fp32,
-   bf16, fp16, int32, int64 and uint8 (B8b: all but uint8), and with one
+   bf16, fp16, int32, int64 and uint8 (B8b: all but uint8), with one
    rank slowed by a spin kernel on its stream before the call (and, with
-   the spins bounded at 5 ms, that rank makes shard_map raise); then, at
-   the allreduce's p = 4 and 154,892,544 fp32 per chunk, bitwise once
-   more, and each rank's CUDA-event time per call (the slowest rank's) and
-   the wall clock per call beside the bytes bound, and the plain version's.
+   the spins bounded at 5 ms, that rank makes shard_map raise), and with
+   the odd ranks' inputs off 16-byte alignment; then, at the allreduce's
+   p = 4 and 154,892,544 fp32 per chunk, bitwise once more, and each
+   rank's stream time per call (CUDA events, host rendezvous included;
+   the slowest rank's) and the wall clock per call beside the bytes
+   bound, the plain version's and one PyTorch call's on the stacked
+   payload (B2's and B1's yardsticks) as a yardstick.
 7. allreduce-device — the same gradient-sized allreduce as 5, but on 4
    per-device ranks (``shard_map``) on ``ring``: exactly 4 B8b and 4 B8a
    launches and no B1/B2/B4; equal to the exact sum and bitwise equal to
@@ -795,15 +798,26 @@ def phase_allreduce():
 # ---------------------------------------------------------------------------
 # per-device ring (B8) on per-device ranks
 # ---------------------------------------------------------------------------
-def b8_run(xs, slow=None, summable=True):
+def shifted(t, k):
+    """A contiguous copy of ``t`` that starts ``k`` elements into a fresh
+    buffer (k = 1: not 16-byte aligned)."""
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:]
+    return out.view(t.shape).copy_(t)
+
+
+def b8_run(xs, slow=None, summable=True, offset=0):
     """B8a on slot 0 and B8b on the whole (p, m) of every rank, kernel and
     plain version, in one shard_map; rank ``slow`` first runs a spin
-    kernel (~50 ms) on its stream."""
+    kernel (~50 ms) on its stream; the odd ranks' inputs start ``offset``
+    elements into their buffers."""
     def fn(v):
         ring = bound_axis("x").ranks
         if ring.rank == slow:
             torch.cuda._sleep(100_000_000)
-        x0 = v[0].contiguous()
+        if offset:
+            v = shifted(v, offset * (ring.rank % 2))
+        x0 = shifted(v[0], offset * (ring.rank % 2)) if offset else \
+            v[0].contiguous()
         outs = [ring_ops.device_ring_allgather(x0, ring),
                 ring_ops.device_ring_allgather(x0, ring, force_ref=True)]
         if summable:
@@ -820,11 +834,11 @@ def phase_device_ring_kernels():
     err = {name: 0.0 for name in DEVICE_REPLACES}
     n_checks = 0
 
-    def check(xs, slow=None):
+    def check(xs, slow=None, offset=0):
         nonlocal n_checks
         summable = xs.dtype != torch.uint8
         before = read_counts()
-        outs = b8_run(xs, slow=slow, summable=summable)
+        outs = b8_run(xs, slow=slow, summable=summable, offset=offset)
         p = xs.shape[0]
         launched = {name: read_counts()[name] - before[name]
                     for name in DEVICE_REPLACES}
@@ -846,7 +860,8 @@ def phase_device_ring_kernels():
             if not same:
                 raise AssertionError(
                     f"{name} disagrees: {str(xs.dtype)[6:]} p={p} "
-                    f"m={xs.shape[2]} slow={slow} max_abs_err={e}")
+                    f"m={xs.shape[2]} slow={slow} offset={offset} "
+                    f"max_abs_err={e}")
             err[name] = max(err[name], e)
 
     for dtype in DEVICE_DTYPES:
@@ -861,6 +876,12 @@ def phase_device_ring_kernels():
         check(ring_input((p, p, 1 << 20), torch.float32, gen), slow=slow)
         print(f"  p={p} m={1 << 20} fp32 with rank {slow} slowed by a ~50 ms "
               "spin kernel on its stream: bitwise equal")
+    # neighbours whose buffers differ in 16-byte alignment must still cut
+    # the same tiles (the kernels' load width is agreed across the ranks)
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+        check(ring_input((4, 4, 1 << 16), dtype, gen), offset=1)
+    print(f"  p=4 m={1 << 16} fp32, bf16, uint8 with the odd ranks' inputs "
+          "one element off 16-byte alignment: bitwise equal")
     # with the spins bounded at 5 ms, the same slowed rank must make every
     # spin run out and shard_map raise, not hang or return a result
     saved = ring_ops.SPIN_TIMEOUT_S
@@ -882,9 +903,12 @@ def phase_device_ring_kernels():
 
 def time_device_ring(gen, err):
     """B8a/B8b at the allreduce's p = 4 and chunk: bitwise against their
-    plain versions, then each rank's CUDA-event time per call (kernel
-    launches back to back on its stream; the slowest rank is reported) and
-    the wall clock per call, for the kernel and the plain version."""
+    plain versions, then each rank's stream time per call (CUDA events
+    around calls back to back on its stream, so it includes the host
+    rendezvous of every call; the slowest rank is reported) and the wall
+    clock per call, for the kernel and the plain version; and the one
+    PyTorch call that computes the same function on the stacked payload
+    (B2's and B1's library calls)."""
     p = ALLREDUCE_RANKS
     m = allreduce_elements() // p
     xs = ring_input((p, p, m), torch.float32, gen)
@@ -927,7 +951,15 @@ def time_device_ring(gen, err):
 
     before = read_counts()
     res = shard_map(fn, xs, axis_name="data").cpu()
-    del xs
+    torch.cuda.empty_cache()
+    row_in = xs[:, 0].contiguous()
+    library = {
+        "device_ring_allgather": lambda: row_in.unsqueeze(0).expand(
+            (p,) + tuple(row_in.shape)).contiguous(),
+        "device_ring_reduce_scatter": lambda: xs.sum(0),
+    }
+    lib_ms = {name: card_ms(library[name], 3, replays=3) for name in names}
+    del xs, row_in, library
     torch.cuda.empty_cache()
     rows = {}
     for k, name in enumerate(names):
@@ -945,18 +977,22 @@ def time_device_ring(gen, err):
         bound_ms, nbytes = ring_bound(stacked, p, m, torch.float32)
         row = dict(max_abs_err=err[name], ms=float(ms.max()),
                    plain_ms=float(plain_ms.max()), bound_ms=bound_ms,
-                   bound_by="bytes", library_ms=None,
+                   bound_by="bytes", library_ms=lib_ms[name],
+                   ms_of="rank stream incl. host rendezvous",
                    wall_ms=float(wall.max()),
                    plain_wall_ms=float(plain_wall.max()))
         print(f"  {name} p={p} m={m} fp32: bitwise equal to its plain "
               f"version on every rank")
-        print(f"  time {name} p={p} m={m} fp32 (card, CUDA events on each "
-              f"rank's stream, {iters[0]} calls back to back): slowest rank "
+        print(f"  time {name} p={p} m={m} fp32 (stream time incl. the "
+              f"host rendezvous: CUDA events on each rank's stream, "
+              f"{iters[0]} calls back to back): slowest rank "
               f"{row['ms']:.5f} ms per call (ranks "
               f"{', '.join(f'{t:.5f}' for t in ms.tolist())}), wall clock "
               f"{row['wall_ms']:.5f} ms per call; plain version "
               f"{row['plain_ms']:.5f} ms (wall {row['plain_wall_ms']:.5f} "
-              f"ms); bound {bound_ms:.5f} ms (bytes, {nbytes / 1e9:.3f} GB "
+              f"ms); library {row['library_ms']:.5f} ms (one call on the "
+              f"stacked payload); bound {bound_ms:.5f} ms (bytes, "
+              f"{nbytes / 1e9:.3f} GB "
               f"as {stacked} on the stacked payload) -> "
               f"{bound_ms / row['ms']:.1%} of the bound; 1 launch per rank "
               f"per call")

@@ -43,8 +43,9 @@ Per-device forms:
   Results are bitwise equal to the emulated ranks'.
 * ``ring`` — ``all_gather`` is B8a and ``reduce_scatter_sum`` B8b, the
   per-device ring kernels; ``allreduce_sum`` is B8b then B8a;
-  ``all_to_all`` runs the plain offset ring schedule (the JAX package
-  keeps its ``ref.ring_alltoall`` even on the TPU).  Only flat
+  ``all_to_all`` is native's per-device exchange (the JAX package has
+  no per-device alltoall kernel either: its ``ref.ring_alltoall`` is a
+  ``ppermute`` schedule with the same result).  Only flat
   communicators: the per-device ring is the ranks' own order, so a split
   communicator raises, as the JAX package's ``_check_device_groups``
   does.
@@ -56,7 +57,6 @@ from typing import Dict, Optional, Union
 import torch
 
 from ..kernels.collectives import ops as ring_ops
-from ..kernels.collectives import ref as ring_ref
 from .errors import KampingError
 from .spmd import bound_axis, rank_tensor
 
@@ -383,8 +383,10 @@ class RingTransport(Transport):
                      tiled)
 
     def all_to_all(self, comm, x):
-        return self._run(comm, x, ring_ops.ring_alltoall,
-                         ring_ref.device_alltoall_ref, "alltoall")
+        return self._run(comm, x, ring_ops.ring_alltoall, _on_ranks(
+            lambda xs, r: torch.stack(_local_rows(None, xs, r,
+                                                  exchange=True))),
+            "alltoall")
 
     def reduce_scatter_sum(self, comm, x):
         return self._run(comm, x, ring_ops.ring_reduce_scatter,

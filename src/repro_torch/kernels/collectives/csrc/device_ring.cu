@@ -54,6 +54,11 @@
 //    the slot back after its add (a credit: release store into the left
 //    neighbour's credit counter for the step it consumed), and the sender
 //    of step s >= 2 waits for the credit of step s - 2.
+//  * Load width.  The 16-byte path cuts tiles in vectors, the scalar path
+//    in elements, so ranks that chose differently would cover different
+//    ranges in block b.  The choice is therefore the host's (`vec`): the
+//    AND over all ranks of "my buffers are 16-byte aligned", exchanged
+//    before the launch, so every rank cuts the same tiles.
 //  * Epochs.  Every call carries a new epoch (1, 2, ...), and every flag
 //    and counter is a store of it, never reset: a value of an earlier
 //    call is always below the current epoch.
@@ -83,6 +88,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <initializer_list>
 #include <stdint.h>
 #include <string.h>
 
@@ -392,15 +398,14 @@ Ring make_ring(void* sem_me, void* sem_left, void* sem_right, int64_t nb,
 
 template <typename T>
 void launch_rs(const void* xs, void* out, const void* buf, void* right_buf,
-               int64_t m, int me, int cap, const Ring& ring,
+               int64_t m, bool vec, int me, int cap, const Ring& ring,
                cudaStream_t stream) {
   constexpr int N = 16 / sizeof(T);
   const T* x = static_cast<const T*>(xs);
   T* o = static_cast<T*>(out);
   const T* mine = static_cast<const T*>(buf);
   T* right = static_cast<T*>(right_buf);
-  if (m % N == 0 && aligned16(xs) && aligned16(out) && aligned16(buf) &&
-      aligned16(right_buf)) {
+  if (vec && m % N == 0) {
     const int blocks = blocks_for(m / N, cap);
     reduce_scatter_kernel<T, N><<<blocks, kThreads, 0, stream>>>(
         x, o, mine, right, m / N, me, ring);
@@ -422,6 +427,15 @@ cudaError_t preload_rs() {
 
 bool bad_ring(int p, int me, int cap, int64_t nb) {
   return p < 2 || me < 0 || me >= p || cap < 1 || nb < cap;
+}
+
+// `vec` claims every rank's buffers 16-byte aligned; it must hold here.
+bool bad_vec(int vec, std::initializer_list<const void*> ptrs) {
+  if (!vec) return false;
+  for (const void* ptr : ptrs) {
+    if (!aligned16(ptr)) return true;
+  }
+  return false;
 }
 
 }  // namespace
@@ -447,21 +461,22 @@ int device_ring_preload() {
 }
 
 // x: nbytes of this rank's chunk -> out: (p, nbytes); right_out is the
-// right neighbour's out.
+// right neighbour's out.  vec: every rank's x and out are 16-byte aligned
+// (the same on every rank, so all cut the same tiles).
 int device_ring_allgather(const void* x, void* out, void* right_out,
-                          int64_t nbytes, int p, int me, int cap,
+                          int64_t nbytes, int vec, int p, int me, int cap,
                           void* sem_me, void* sem_left, void* sem_right,
                           int64_t nb, unsigned epoch, int64_t timeout_ns,
                           void* stream) {
-  if (bad_ring(p, me, cap, nb) || nbytes < 1) {
+  if (bad_ring(p, me, cap, nb) || nbytes < 1 ||
+      bad_vec(vec, {x, out, right_out})) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaGetLastError();  // report this launch's error, not an earlier one
   const Ring ring = make_ring(sem_me, sem_left, sem_right, nb, p, epoch,
                               timeout_ns);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nbytes % 16 == 0 && aligned16(x) && aligned16(out) &&
-      aligned16(right_out)) {
+  if (vec && nbytes % 16 == 0) {
     const int64_t n = nbytes / 16;
     allgather_kernel<uint4><<<blocks_for(n, cap), kThreads, 0, s>>>(
         static_cast<const uint4*>(x), static_cast<uint4*>(out),
@@ -476,35 +491,29 @@ int device_ring_allgather(const void* x, void* out, void* right_out,
 }
 
 // xs: (p, m) -> out: (m); buf: this rank's (2, m) receive slots,
-// right_buf the right neighbour's.
+// right_buf the right neighbour's.  vec as for the allgather, over xs, out
+// and buf.
 int device_ring_reduce_scatter(const void* xs, void* out, void* buf,
-                               void* right_buf, int64_t m, int dtype, int p,
-                               int me, int cap, void* sem_me, void* sem_left,
+                               void* right_buf, int64_t m, int dtype,
+                               int vec, int p, int me, int cap,
+                               void* sem_me, void* sem_left,
                                void* sem_right, int64_t nb, unsigned epoch,
                                int64_t timeout_ns, void* stream) {
-  if (bad_ring(p, me, cap, nb) || m < 1) {
+  if (bad_ring(p, me, cap, nb) || m < 1 ||
+      bad_vec(vec, {xs, out, buf, right_buf})) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaGetLastError();
   const Ring ring = make_ring(sem_me, sem_left, sem_right, nb, p, epoch,
                               timeout_ns);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: launch_rs<float>(xs, out, buf, right_buf, m, me, cap, ring, s);
-      break;
-    case 1: launch_rs<double>(xs, out, buf, right_buf, m, me, cap, ring, s);
-      break;
-    case 2: launch_rs<__nv_bfloat16>(xs, out, buf, right_buf, m, me, cap,
-                                     ring, s);
-      break;
-    case 3: launch_rs<__half>(xs, out, buf, right_buf, m, me, cap, ring, s);
-      break;
-    case 4: launch_rs<int32_t>(xs, out, buf, right_buf, m, me, cap, ring, s);
-      break;
-    case 5: launch_rs<int64_t>(xs, out, buf, right_buf, m, me, cap, ring, s);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  using Launch = void (*)(const void*, void*, const void*, void*, int64_t,
+                          bool, int, int, const Ring&, cudaStream_t);
+  static const Launch kLaunch[] = {
+      launch_rs<float>, launch_rs<double>, launch_rs<__nv_bfloat16>,
+      launch_rs<__half>, launch_rs<int32_t>, launch_rs<int64_t>};
+  if (dtype < 0 || dtype >= 6) return static_cast<int>(cudaErrorInvalidValue);
+  kLaunch[dtype](xs, out, buf, right_buf, m, vec, me, cap, ring, s);
   return static_cast<int>(cudaGetLastError());
 }
 

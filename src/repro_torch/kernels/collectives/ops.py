@@ -101,8 +101,8 @@ def _device_library():
                 raise RuntimeError(f"device ring kernels failed to load: "
                                    f"cudaError {err}")
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            ring = [i32, i32, i32, ptr, ptr, ptr, i64, ctypes.c_uint, i64,
-                    ptr]
+            ring = [i32, i32, i32, i32, ptr, ptr, ptr, i64, ctypes.c_uint,
+                    i64, ptr]
             lib.device_ring_allgather.argtypes = [ptr, ptr, ptr, i64] + ring
             lib.device_ring_reduce_scatter.argtypes = [ptr, ptr, ptr, ptr,
                                                        i64, i32] + ring
@@ -208,18 +208,23 @@ def ring_allreduce(xs, *, rings=1, force_ref=False):
     )
 
 
-def _device_call(name, ring, x, mine, launch):
+def _device_call(name, ring, x, mine, own, launch):
     """One per-device kernel call of this rank: meet the other ranks with
-    ``mine`` (the buffer the left neighbour writes into) and ``x``'s shape
-    and dtype, launch ``launch(lib, right's buffer, ring args)`` on this
-    rank's stream, and meet again once every rank has launched."""
+    ``mine`` (the buffer the left neighbour writes into), ``x``'s shape and
+    dtype, and whether all of ``own`` (this rank's buffers) is 16-byte
+    aligned; launch ``launch(lib, right's buffer, ring args)`` on this
+    rank's stream, and meet again once every rank has launched.  The kernel
+    takes its 16-byte path only if every rank's buffers allow it, so all
+    ranks cut the same tiles."""
     lib = _device_library()
     epoch = ring.next_epoch()
-    posts = ring.exchange((mine, (tuple(x.shape), x.dtype, epoch)))
-    if len({meta for _, meta in posts}) != 1:
+    aligned = all(t.data_ptr() % 16 == 0 for t in own)
+    posts = ring.exchange((mine, (tuple(x.shape), x.dtype, epoch), aligned))
+    if len({meta for _, meta, _ in posts}) != 1:
         raise ValueError(f"{name}: the ranks called with different shapes, "
                          f"dtypes or call counts: "
-                         f"{[meta for _, meta in posts]}")
+                         f"{[meta for _, meta, _ in posts]}")
+    vec = int(all(a for _, _, a in posts))
     p, me = ring.size, ring.rank
     right = posts[(me + 1) % p][0]
     stream = torch.cuda.current_stream(x.device)
@@ -230,7 +235,7 @@ def _device_call(name, ring, x, mine, launch):
         if x.numel():
             with torch.cuda.device(x.device):
                 err = launch(lib, right, [
-                    p, me, ring.blocks, *sems, ring.blocks, epoch,
+                    vec, p, me, ring.blocks, *sems, ring.blocks, epoch,
                     int(SPIN_TIMEOUT_S * 1e9), stream.cuda_stream])
     finally:
         ring.exchange(None)  # every rank has launched
@@ -270,7 +275,8 @@ def device_ring_allgather(x, ring, *, force_ref=False):
             x.data_ptr(), out.data_ptr(), right.data_ptr(),
             x.numel() * x.element_size(), *args)
 
-    if _device_call("device_ring_allgather", ring, x, out, launch):
+    if _device_call("device_ring_allgather", ring, x, out, (x, out),
+                    launch):
         _count(device_ring_allgather)
     return out
 
@@ -294,7 +300,8 @@ def device_ring_reduce_scatter(x, ring, *, force_ref=False):
             x.data_ptr(), out.data_ptr(), buf.data_ptr(), right.data_ptr(),
             m, _DTYPES[x.dtype], *args)
 
-    if _device_call("device_ring_reduce_scatter", ring, x, buf, launch):
+    if _device_call("device_ring_reduce_scatter", ring, x, buf,
+                    (x, out, buf), launch):
         _count(device_ring_reduce_scatter)
     return out
 

@@ -39,7 +39,6 @@ __all__ = [
     "alltoall_stacked_ref",
     "device_allgather_ref",
     "device_reduce_scatter_ref",
-    "device_alltoall_ref",
 ]
 
 
@@ -176,23 +175,3 @@ def device_reduce_scatter_ref(x, ring):
         right[s % 2].copy_(acc)
         ring.barrier()
 
-
-def device_alltoall_ref(x, ring):
-    """This rank's ``(p, ...)`` buckets by destination -> ``(p, ...)`` by
-    source, in the offset schedule of the JAX package's
-    ``ring_alltoall``: at offset ``s`` bucket ``(me + s) % p`` goes to rank
-    ``(me + s) % p``'s slot ``me``."""
-    p, me = ring.size, ring.rank
-    if x.dim() == 0 or x.shape[0] != p:
-        raise ValueError(f"device alltoall: expected ({p}, ...); got "
-                         f"{tuple(x.shape)}")
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    out[me] = x[me]
-    if p == 1:
-        return out
-    outs = ring.share(out)
-    for s in range(1, p):
-        dst = (me + s) % p
-        outs[dst][me].copy_(x[dst])
-    ring.barrier()
-    return out

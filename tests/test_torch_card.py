@@ -13,7 +13,8 @@ Kernels and tolerances:
 * B8a/B8b per-device ring collectives on per-device ranks
   (``repro_torch.core.shard_map``): bitwise against their plain versions
   and B2/B1, one launch per rank per call, also with one rank slowed by a
-  spin kernel on its stream;
+  spin kernel on its stream and with neighbours whose inputs differ in
+  16-byte alignment;
 * B5 flash attention at head_dim 64 and 128: 2e-5 in fp32, 3e-2 in bf16
   (tests/test_kernels.py:37,40); B5b at head_dim 256 (MQA 16:1 over a
   window, recurrentgemma's local attention): the same;
@@ -65,15 +66,25 @@ def test_ring_kernels_match_plain_versions(cuda_device, dtype):
 
 
 # -- per-device ring collectives (B8a, B8b) -----------------------------------
-def _b8(xs, slow=None, summable=True):
+def _shifted(t, k):
+    """A contiguous copy of ``t`` that starts ``k`` elements into a fresh
+    buffer (k = 1: not 16-byte aligned)."""
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:]
+    return out.view(t.shape).copy_(t)
+
+
+def _b8(xs, slow=None, summable=True, offset=0):
     """B8a on slot 0 and B8b on the whole (p, m) of every rank, kernel and
     plain version, in one shard_map; rank ``slow`` first spins ~50 ms on
-    its stream."""
+    its stream; the odd ranks' inputs start ``offset`` elements into their
+    buffers."""
     def fn(v):
         ring = bound_axis("x").ranks
         if ring.rank == slow:
             torch.cuda._sleep(100_000_000)
-        x0 = v[0].contiguous()
+        k = offset * (ring.rank % 2)
+        v = _shifted(v, k)
+        x0 = _shifted(v[0], k)
         outs = [ring_ops.device_ring_allgather(x0, ring),
                 ring_ops.device_ring_allgather(x0, ring, force_ref=True)]
         if summable:
@@ -115,6 +126,26 @@ def test_device_ring_kernels_with_a_slowed_rank(cuda_device, slow):
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[2], outs[3])
     assert torch.equal(outs[2], ring_ops.ring_reduce_scatter(xs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_device_ring_kernels_with_misaligned_neighbours(cuda_device, dtype):
+    """Rank 0's input is 16-byte aligned and rank 1's is not: the ranks
+    must agree on the load width, or block b of one rank and of its
+    neighbour would cover different ranges."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    summable = dtype != torch.uint8
+    for p in (2, 4):
+        xs = torch.randint(0, 100, (p, p, 1 << 16), generator=g,
+                           device=cuda_device).to(dtype)
+        outs = _b8(xs, summable=summable, offset=1)
+        assert torch.equal(outs[0], outs[1])
+        assert torch.equal(outs[0], ring_ops.ring_allgather(
+            xs[:, 0].contiguous(), force_ref=not summable))
+        if summable:
+            assert torch.equal(outs[2], outs[3])
+            assert torch.equal(outs[2], ring_ops.ring_reduce_scatter(xs))
 
 
 def test_device_ring_spin_that_runs_out_raises(cuda_device, monkeypatch):
