@@ -15,10 +15,13 @@ Phases (any failure raises and the script exits non-zero):
    version on the card, at the serve shapes and at GQA, window, ragged
    and non-causal shapes, and at head_dim 256 (B5b: recurrentgemma-9b's
    MQA 16:1 with its window of 2048, and a window shorter than S), in
-   fp32 (2e-5) and bf16 (3e-2, and within half a bf16 ulp of the plain
-   version in fp32); card times at the serve shapes (CUDA graph replay)
-   beside the bound, the plain version and one PyTorch library call as a
-   yardstick, and the same calls issued one by one from Python.
+   fp32 (2e-5; the SIMT kernel) and bf16 (3e-2, and within half a bf16
+   ulp of the plain version in fp32; the tensor-core kernel); card times
+   at the serve shapes (CUDA graph replay) beside the bound, the plain
+   version and one PyTorch library call as a yardstick (at S = 2560, SDPA
+   with a boolean band mask), each with its share of the bound and its
+   ratio to the library call, and the same calls issued one by one from
+   Python.
 4. ring-kernels — the ring reduce-scatter (B1), allgather (B2), their
    allreduce composition (B3) and the alltoall (B4) against their plain
    versions, bitwise (``torch.equal``), at p in {1, 2, 3, 4, 8}, m in
@@ -160,10 +163,15 @@ CHECK_SHAPES = SERVE_SHAPES + [
     (1, 2560, 2560, 16, 1, 256, True, 2048),
     (1, 600, 600, 16, 1, 256, True, 256),
     (2, 130, 130, 4, 2, 256, True, None),
+    # the bf16 kernel's 128-row q tiles and 64-key KV tiles: S one past a
+    # q tile, and window 0 (every key masked, so the output is 0)
+    (1, 2049, 2049, 16, 1, 256, True, None),
+    (1, 128, 128, 16, 16, 64, True, 0),
 ]
 # B5b card times: recurrentgemma-9b's local attention at S = 2048 (every
 # pair inside the window, so SDPA's causal call is the same function) and
-# at S = 2560 (past the window; SDPA has no window, so no yardstick)
+# at S = 2560 (past the window: SDPA with a boolean band mask, causal and
+# inside the window, is the same function, as no row is fully masked)
 D256_TIME_SHAPES = [(1, 2048, 2048, 16, 1, 256, True, 2048),
                     (1, 2560, 2560, 16, 1, 256, True, 2048)]
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -391,7 +399,8 @@ def phase_kernels():
                          bound_by=bound_by))
         print(f"  time S={shape[1]} bf16 (card, graph replay): kernel "
               f"{ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}) | issued from Python: "
+              f"bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.2%} "
+              f"of the bound, {ms / lib_ms:.2f}x sdpa | issued from Python: "
               f"kernel {eager[0]:.5f}, plain {eager[1]:.5f}, sdpa "
               f"{eager[2]:.5f} ms")
 
@@ -403,20 +412,29 @@ def phase_kernels():
         plain = lambda: flash_ops.flash_attention(q, k, v, window=window,
                                                   force_ref=True)
         ms, plain_ms = card_ms(kern, 20), card_ms(plain, 3)
-        lib_ms = None
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         if shape[1] <= window:  # causal alone is the same function here
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = card_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True), 20)
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_name = "sdpa causal"
+        else:  # causal and inside the window, as a boolean band mask
+            pos = torch.arange(shape[1], device=q.device)
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+            lib_name = "sdpa band mask"
+        torch.testing.assert_close(  # the yardstick computes this function
+            lib().transpose(1, 2).float(), plain().float(), atol=3e-2,
+            rtol=3e-2)
+        lib_ms = card_ms(lib, 20)
         bound_ms, bound_by = attention_bound(shape, dtype)
         rows256.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=bound_ms,
                             bound_by=bound_by))
-        lib = "none (no window)" if lib_ms is None else f"{lib_ms:.5f} ms"
         print(f"  time D=256 S={shape[1]} H=16 KV=1 window {window} bf16 "
               f"(card, graph replay): kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms, sdpa {lib}, bound {bound_ms:.5f} ms "
-              f"({bound_by}), {bound_ms / ms:.2%} of the bound")
+              f"{plain_ms:.5f} ms, {lib_name} {lib_ms:.5f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.2%} of the "
+              f"bound, {ms / lib_ms:.2f}x {lib_name}")
     return max_err, rows, rows256
 
 

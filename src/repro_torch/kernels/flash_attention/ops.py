@@ -3,8 +3,10 @@ version on CPU tensors.
 
 For a CUDA tensor :func:`flash_attention` launches
 ``csrc/flash_attention.cu`` (built with nvcc at first use, bound through
-ctypes) or raises; it never falls back to the plain version.  For a CPU
-tensor it computes :func:`~.ref.flash_attention_ref`.  ``force_ref=True``
+ctypes) or raises; it never falls back to the plain version.  The dtype
+picks the kernel: bf16 runs on the tensor cores (wgmma, TMA), fp32 on the
+SIMT cores.  For a CPU tensor it computes
+:func:`~.ref.flash_attention_ref`.  ``force_ref=True``
 computes the plain version on any device; ``chip_smoke.py`` uses it to
 hold the kernel against its plain version, and the serve path never sets
 it.  ``flash_attention.launches`` counts kernel launches.
@@ -68,6 +70,10 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if window is not None and window < 0:
         raise ValueError(f"flash_attention: window={window} < 0")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v must be 16-byte "
+                         "aligned (the kernel reads them with TMA)")
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, force_ref=False):

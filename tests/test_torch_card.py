@@ -17,7 +17,9 @@ Kernels and tolerances:
   16-byte alignment;
 * B5 flash attention at head_dim 64 and 128: 2e-5 in fp32, 3e-2 in bf16
   (tests/test_kernels.py:37,40); B5b at head_dim 256 (MQA 16:1 over a
-  window, recurrentgemma's local attention): the same;
+  window, recurrentgemma's local attention): the same; the bf16 kernel
+  (tensor cores) also within half a bf16 ulp of the plain version in
+  fp32, plus 1e-5;
 * B6 SSD scan: 3e-4 in fp32 (tests/test_kernels.py:71-72), 3e-2 in bf16;
 * B7 RG-LRU scan: 1e-5 in fp32 (tests/test_kernels.py:86-87) against the
   plain doubling scan and the sequential loop, at the JAX package's test
@@ -160,34 +162,60 @@ def test_device_ring_spin_that_runs_out_raises(cuda_device, monkeypatch):
 
 # -- flash attention (B5, B5b) ------------------------------------------------
 # (B, Sq, Skv, H, KV, D, causal, window)
+# The bf16 kernel works on 128-row q tiles and 64-key KV tiles (TMA boxes
+# zero-filled past Sq and Skv), so the grid holds lengths that are not
+# multiples of either.
 FLASH_GRID = [
     (2, 128, 128, 4, 2, 64, True, None),
     (2, 100, 100, 2, 2, 64, True, None),   # non-multiple -> padding
     (1, 64, 192, 4, 4, 64, False, None),   # cross-attention style
     (1, 128, 128, 8, 2, 128, True, 32),    # GQA 4:1, small window
+    (2, 200, 200, 4, 2, 64, True, None),   # 200: neither 64k nor 128k
+    (1, 200, 328, 4, 4, 64, False, None),  # Skv != Sq, both ragged
+    (1, 128, 128, 4, 4, 64, True, 0),      # window 0: every row masked
+    (2, 256, 256, 8, 2, 128, True, None),  # GQA 8:2 at head_dim 128
+    (1, 300, 130, 8, 2, 128, False, None),  # Skv < Sq, non-causal
 ]
 # head_dim 256: recurrentgemma-9b's serve shape (MQA 16:1, window 2048),
-# a window shorter than S, and a ragged S with GQA
+# a window shorter than S, a ragged S with GQA, S one past a q tile,
+# batch 2 with MQA, Skv != Sq and window 0
 FLASH_GRID_256 = [
     (1, 2048, 2048, 16, 1, 256, True, 2048),
     (1, 600, 600, 16, 1, 256, True, 256),
     (2, 130, 130, 4, 2, 256, True, None),
+    (1, 2049, 2049, 16, 1, 256, True, None),
+    (2, 300, 300, 16, 1, 256, True, 256),
+    (1, 130, 260, 4, 1, 256, False, None),
+    (1, 64, 64, 4, 1, 256, True, 0),
 ]
 FLASH_TOLS = [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)]
+# The bf16 kernel computes in fp32 (P as two bf16 halves on the tensor
+# cores) and rounds its output once, so each output lies within half a
+# bf16 ulp (at most 2^-8 relative) of the plain version computed in fp32
+# on the same inputs, plus fp32 rounding (chip_smoke.py holds the same).
+BF16_HALF_ULP, BF16_FP32_ATOL = 2.0 ** -8, 1e-5
 
 
-def _flash_check(device, shape, dtype, tol):
-    B, Sq, Skv, H, KV, D, causal, window = shape
+def _flash_inputs(device, shape, dtype):
+    B, Sq, Skv, H, KV, D, _, _ = shape
     g = torch.Generator(device=device).manual_seed(Sq + D)
     q = torch.randn(B, Sq, H, D, generator=g, device=device).to(dtype)
     k = torch.randn(B, Skv, KV, D, generator=g, device=device).to(dtype)
     v = torch.randn(B, Skv, KV, D, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def _flash_check(device, shape, dtype, tol):
+    causal, window = shape[6], shape[7]
+    q, k, v = _flash_inputs(device, shape, dtype)
     before = flash_ops.flash_attention.launches
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     assert flash_ops.flash_attention.launches == before + 1
     want = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      force_ref=True)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if window == 0:  # every key masked: the output is exactly 0
+        assert torch.count_nonzero(got) == 0
 
 
 @pytest.mark.parametrize("dtype,tol", FLASH_TOLS)
@@ -200,6 +228,20 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", FLASH_TOLS)
 def test_flash_kernel_head_dim_256(cuda_device, shape, dtype, tol):
     _flash_check(cuda_device, shape, dtype, tol)
+
+
+@pytest.mark.parametrize("shape", FLASH_GRID + FLASH_GRID_256)
+def test_flash_bf16_within_half_ulp_of_fp32(cuda_device, shape):
+    """The bf16 kernel against the plain version in fp32 on the same bf16
+    inputs: |got - want| <= 2^-8 |want| + 1e-5 everywhere."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _flash_inputs(cuda_device, shape, torch.bfloat16)
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_ops.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window,
+                                     force_ref=True)
+    excess = (got.float() - want).abs() - BF16_HALF_ULP * want.abs()
+    assert float(excess.max()) <= BF16_FP32_ATOL
 
 
 # -- SSD scan (B6) ------------------------------------------------------------

@@ -108,6 +108,13 @@ def test_kernel_rejects_what_it_does_not_take():
         ops._check(q, kv, kv, None)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(kv.to("meta"), kv.to("meta"), kv.to("meta"))
+    # the bf16 kernel reads q, k, v with TMA: 16-byte aligned only
+    off = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16)[1:]
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    ops._check(q, kv, kv, None)
+    with pytest.raises(ValueError, match="aligned"):
+        ops._check(q, off.view(1, 8, 2, 64), kv, None)
 
 
 # head_dim 256 (recurrentgemma's local attention, MQA 16:1 over a window):
@@ -147,3 +154,76 @@ def test_head_dim_256_is_taken():
     kv = torch.zeros(1, 8, 1, 256, dtype=torch.bfloat16)
     ops._check(q, kv, kv, 2048)
     assert ops._HEAD_DIMS == (64, 128, 256)
+
+
+# -- the bf16 kernel's precision argument -------------------------------------
+# The bf16 CUDA kernel multiplies on bf16 tensor cores with fp32 sums: S from
+# bf16 q, k (products exact in fp32), and P.V with P split into two bf16
+# halves, P = bf16(P) + bf16(P - bf16(P)).  These tests emulate that
+# arithmetic on the CPU and hold it to the same bound as the card checks:
+# within half a bf16 ulp (2^-8 |x|) of the plain version in fp32 on the
+# same inputs, plus 1e-5; and show that P rounded once to bf16 misses it.
+BF16_HALF_ULP, BF16_FP32_ATOL = 2.0 ** -8, 1e-5
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, causal, window, split_p,
+                                block_k=64):
+    """The bf16 kernel's arithmetic in fp32 on the CPU: 64-key tiles, the
+    online softmax in the log2 domain, O += P_hi.V + P_lo.V (or bf16(P).V
+    when not ``split_p``), output rounded to bf16 once."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale_log2 = (1.0 / np.sqrt(D)) * np.log2(np.e)
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    m = torch.full((B, Sq, KV, G), -1e30)
+    l = torch.zeros((B, Sq, KV, G))
+    acc = torch.zeros((B, Sq, KV, G, D))
+    q_pos = torch.arange(Sq)[:, None]
+    for start in range(0, Skv, block_k):
+        kb = k[:, start:start + block_k].float()
+        vb = v[:, start:start + block_k].float()
+        x = torch.einsum("bqkgd,bckd->bqkgc", qf, kb) * scale_log2
+        k_pos = start + torch.arange(kb.shape[1])[None, :]
+        mask = torch.ones((Sq, kb.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        mask = mask[None, :, None, None, :]
+        x = torch.where(mask, x, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        p = torch.where(mask, torch.exp2(x - m_new[..., None]), 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bqkgc,bckd->bqkgd", hi, vb)
+        if split_p:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bqkgc,bckd->bqkgd", lo, vb)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, Sq, H, D).to(torch.bfloat16)
+
+
+def _half_ulp_excess(got, want32):
+    return float(((got.float() - want32).abs()
+                  - BF16_HALF_ULP * want32.abs()).max())
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("window", [None, 96])
+def test_split_p_keeps_bf16_within_half_ulp_of_fp32(D, window):
+    """At a serve-like shape (S 256, MQA 8:1), P as two bf16 halves keeps
+    the bf16 output within half an ulp of fp32; P rounded once does not."""
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16)
+               for x in _inputs(1, 256, 256, 8, 1, D, seed=11))
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True, window=window)
+    split = _emulate_tensor_core_kernel(q, k, v, causal=True, window=window,
+                                        split_p=True)
+    once = _emulate_tensor_core_kernel(q, k, v, causal=True, window=window,
+                                       split_p=False)
+    assert _half_ulp_excess(split, want32) <= BF16_FP32_ATOL
+    assert _half_ulp_excess(once, want32) > BF16_FP32_ATOL
