@@ -116,6 +116,7 @@ import importlib.util
 import json
 import operator
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1624,6 +1625,35 @@ def _to_fp32_in_place(tree):
             tree[key] = leaf.float()
 
 
+def ptxas_spills(log: str) -> dict:
+    """Spill stores and loads (bytes) of each kernel in a ``-Xptxas -v``
+    report, by mangled name."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ", 1)[1].strip()
+        elif name is not None and "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            spills[name] = (int(found[1]), int(found[2]))
+            name = None
+    return spills
+
+
+def check_tc_spills(log: str) -> None:
+    """Every bf16 tensor-core flash instance (D 64, 128, 256) compiled
+    with no spill, as the kernel's register budget is meant to give."""
+    tc = {n: s for n, s in ptxas_spills(log).items() if "flash_fwd_tc" in n}
+    if len(tc) != 3:
+        raise AssertionError(f"expected 3 flash_fwd_tc instances in the "
+                             f"ptxas report, found {len(tc)}")
+    spilled = {n: s for n, s in tc.items() if s != (0, 0)}
+    if spilled:
+        raise AssertionError(f"flash_fwd_tc spills (stores, loads): "
+                             f"{spilled}")
+    print(f"  flash_fwd_tc: {len(tc)} instances, 0 spill bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1648,6 +1678,8 @@ def main() -> int:
                 lines[line.strip()] = lines.get(line.strip(), 0) + 1
         for line, count in lines.items():
             print(f"  {line}" + (f" (x{count})" if count > 1 else ""))
+        if source == flash_ops.SOURCE:
+            check_tc_spills(rec["log"])
 
     print("[kernels]")
     max_err, rows, rows256 = phase_kernels()

@@ -52,11 +52,14 @@ def build(source: Path) -> dict:
 
     Returns ``library``, ``seconds`` (0.0 when it was already built) and
     ``log`` (nvcc's ``-Xptxas -v`` report of registers, shared memory and
-    spills).  Raises if nvcc fails.
+    spills, kept beside the library so a built one still reports it).
+    Raises if nvcc fails.
     """
     out = library_path(source)
+    log = out.with_suffix(".log")
     if out.exists():
-        return {"library": str(out), "seconds": 0.0, "log": ""}
+        return {"library": str(out), "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -66,6 +69,9 @@ def build(source: Path) -> dict:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
+    tmp_log = log.with_suffix(f".{os.getpid()}.log.tmp")
+    tmp_log.write_text(proc.stdout)
+    os.replace(tmp_log, log)
     os.replace(tmp, out)  # atomic: a reader never sees a partial file
     return {"library": str(out), "seconds": time.perf_counter() - t0,
             "log": proc.stdout}

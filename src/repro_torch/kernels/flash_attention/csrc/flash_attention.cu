@@ -706,13 +706,8 @@ EncodeTiled encode_tiled() {
   static const EncodeTiled fn = []() -> EncodeTiled {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
     const cudaError_t err = cudaGetDriverEntryPointByVersion(
         "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
     if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
       return nullptr;
     return reinterpret_cast<EncodeTiled>(p);

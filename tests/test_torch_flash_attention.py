@@ -227,3 +227,41 @@ def test_split_p_keeps_bf16_within_half_ulp_of_fp32(D, window):
                                        split_p=False)
     assert _half_ulp_excess(split, want32) <= BF16_FP32_ATOL
     assert _half_ulp_excess(once, want32) > BF16_FP32_ATOL
+
+
+_PTXAS = """\
+ptxas info    : Function properties for _Z12flash_fwd_tcILi64EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _Z12flash_fwd_tcILi128EEv
+    0 bytes stack frame, {s128} bytes spill stores, {l128} bytes spill loads
+ptxas info    : Function properties for _Z9flash_fwdILi256EEv
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Function properties for _Z12flash_fwd_tcILi256EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+@pytest.mark.parametrize("log, error", [
+    (_PTXAS.format(s128=0, l128=0), None),
+    (_PTXAS.format(s128=4, l128=0), "spills"),
+    (_PTXAS.format(s128=0, l128=8), "spills"),
+    (_PTXAS.format(s128=0, l128=0).split("ptxas info    : Function "
+                                         "properties for _Z12flash_fwd_tc"
+                                         "ILi256")[0], "expected 3"),
+])
+def test_chip_smoke_spill_check(log, error):
+    """The smoke script's build check: every bf16 tensor-core instance
+    without spills (the fp32 SIMT instance may spill), all three present."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    if error is None:
+        chip_smoke.check_tc_spills(log)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke.check_tc_spills(log)
