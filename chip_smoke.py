@@ -10,7 +10,7 @@ Phases (any failure raises and the script exits non-zero):
 1. device — the card's name and power limit (nvidia-smi); TF32 off.
 2. build — nvcc builds the five kernel sources from the checkout, one
    nvcc per source, started together; each build's time and ptxas
-   register and spill lines.
+   register and spill lines (by kernel for B6).
 3. kernels — the flash-attention kernel against its plain PyTorch
    version on the card, at the serve shapes and at GQA, window, ragged
    and non-causal shapes, and at head_dim 256 (B5b: recurrentgemma-9b's
@@ -67,20 +67,26 @@ Phases (any failure raises and the script exits non-zero):
    prefill logits through the kernel match the plain-version path, and a
    small fp32 model on the card matches the same model on the CPU.
 10. ssd-kernel — the SSD chunked-scan kernel (B6) against its plain
-   version on the card: the JAX package's kernel-test shapes in fp32, the
-   serve shapes (S = 100, 128, 256, 1024 at H = 32, P = 64, G = 1,
-   N = 128) in fp32 and bf16, one G > 1 and one B > 1 shape, and S = 1024
-   with mamba2's fast decays (exp(dt A) down to e^-20).  fp32 within
-   3e-4 (the reference's own tolerance); bf16 within half a bf16 ulp of
-   the plain version in fp32 on the same inputs, plus 3e-4.  Card times
-   at S = 128..1024 beside the plain version and the bound.
+   version on the card: the JAX package's kernel-test shapes and one
+   with Q, N and P all off the tensor cores' 16 x 8 tile (Q = 100) in fp32
+   and bf16, the serve shapes (S = 100, 128, 256, 1024 at H = 32, P = 64,
+   G = 1, N = 128) in fp32 and bf16, one G > 1 and one B > 1 shape, and
+   S = 1024 with mamba2's fast decays (exp(dt A) down to e^-20).  fp32
+   within 3e-4 (the reference's own tolerance); bf16 within half a bf16
+   ulp of the plain version in fp32 on the same inputs, plus 3e-4.  The
+   CUDA launches of one call (profiler), and card times at S = 128..1024
+   beside the plain version and the bound.
 11. serve-ssm — full-width mamba2-370m in bf16 (random weights from a
    seeded ``torch.Generator``) answers 8 requests (prompts of 100-1024
    tokens, 32 new tokens each) through ``ServeEngine``: exactly prefills
    x 48 SSD-scan launches and no other kernel; the 1024-token prompt's
    prefill logits through the kernel match the plain-version path (rel
    L2 < 2%), and a small fp32 mamba2 on the card matches the same model
-   on the CPU within 1e-4.
+   on the CPU within 1e-4.  Printed beside the logits check: the share
+   of the scan's bf16 outputs over that prefill's 48 layers that differ
+   from the plain version's, and the plain path's logits with 1e-5 and
+   1e-4 of its scan outputs moved by one bf16 ulp (seeded), which is
+   what a 2% limit on a 48-layer bf16 model measures.
 12. lru-kernel — the RG-LRU scan kernel (B7) against its plain version
    (the doubling scan) and the sequential loop on the card, within 1e-5
    in fp32: the JAX package's kernel-test shapes, recurrentgemma-9b's
@@ -243,6 +249,9 @@ SSD_MORE_SHAPES = [(1, 512, 32, 64, 4, 128, 128),   # 4 groups of 8 heads
 # e^-20 and la, summed over a chunk, thousands; the summation order of la
 # then shows in exp(la_i - la_j), which mild decays never exercise.
 SSD_FAST_DECAY_SHAPE = (1, 1024, 32, 64, 1, 128, 128)
+# Q = 100, N = 40 and P = 24: none a multiple of the bf16 kernel's 16 x 8
+# mma tile, so every tile is zero-filled; G = 3 groups of 2 heads, B = 2
+SSD_OFF_TILE_SHAPE = (2, 300, 6, 24, 3, 40, 100)
 SSD_TIME_SHAPES = [(1, s, 32, 64, 1, 128, 128) for s in (128, 256, 512,
                                                          1024)]
 # fp32: the reference's own tolerance (tests/test_kernels.py:71-72).  bf16:
@@ -250,6 +259,9 @@ SSD_TIME_SHAPES = [(1, s, 32, 64, 1, 128, 128) for s in (128, 256, 512,
 # half a bf16 ulp of the plain version in fp32, plus that 3e-4.
 SSD_TOL = 3e-4
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu"
+# B6's kernels: bf16 on the tensor cores in three launches, fp32 in one
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_carry", "ssd_chunk_out",
+               "ssd_scan_fp32")
 SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:69"
 SSM_PROMPT_LENS = (100, 128, 256, 384, 512, 640, 896, 1024)
 
@@ -1166,9 +1178,9 @@ def phase_ssd_kernel():
     gen = torch.Generator(device="cuda").manual_seed(5)
     max_err = 0.0
     both = (torch.float32, torch.bfloat16)
-    checks = [(s, torch.float32, False) for s in SSD_TEST_SHAPES] + [
-        (s, dt, False) for s in SSD_SERVE_SHAPES + SSD_MORE_SHAPES
-        for dt in both] + [(SSD_FAST_DECAY_SHAPE, dt, True) for dt in both]
+    checks = [(s, dt, False) for s in SSD_TEST_SHAPES + [SSD_OFF_TILE_SHAPE]
+              + SSD_SERVE_SHAPES + SSD_MORE_SHAPES for dt in both] + [
+        (SSD_FAST_DECAY_SHAPE, dt, True) for dt in both]
     for shape, dtype, fast in checks:
         x, a, Bm, C = ssd_inputs(shape, dtype, gen, fast_decay=fast)
         chunk = shape[-1]
@@ -1195,6 +1207,16 @@ def phase_ssd_kernel():
                                  f"{dtype}: max_abs_err={err}")
         max_err = max(max_err, err)
 
+    for shape in (SSD_SERVE_SHAPES[0], SSD_SERVE_SHAPES[-1]):
+        for dtype in both:
+            x, a, Bm, C = ssd_inputs(shape, dtype, gen)
+            n, times = cuda_launches(lambda: ssd_ops.ssd_scan(
+                x, a, Bm, C, chunk=shape[-1]))
+            print(f"  CUDA launches per call at S={shape[1]} "
+                  f"{str(dtype)[6:]}: {n:g} (profiler, device us per "
+                  "call: " + ", ".join(f"{k} {v:.2f}"
+                                       for k, v in times.items()) + ")")
+
     rows = []
     for shape in SSD_TIME_SHAPES:
         dtype = torch.bfloat16
@@ -1212,6 +1234,30 @@ def phase_ssd_kernel():
               f"{flops / ms / 1e9:.1f} GFLOP/s, {bound_ms / ms:.2%} of the "
               "bound")
     return max_err, rows
+
+
+def cuda_launches(fn, calls=10):
+    """``(launches, {kernel: us})``: the CUDA kernels one call of ``fn``
+    runs and each one's device time, per call, from the profiler over
+    ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    times = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", 0)
+              or getattr(e, "cuda_time_total", 0))
+        if us and e.count:  # "(anonymous namespace)::ssd_chunk_out(...)"
+            name = e.key.replace("(anonymous namespace)::", "")
+            times[name.split("(")[0].split("::")[-1]] = us / calls
+    return n / calls, times
 
 
 def phase_reference_ssm():
@@ -1344,9 +1390,61 @@ def phase_serve_ssm():
           f"{float(want.abs().max()):.3f}")
     if not rel <= LOGIT_REL_TOL:
         raise AssertionError(f"prefill logits disagree: rel L2 {rel}")
+    scan_sensitivity(params, toks, cfg, want)
     del params, engine, gc, wc
     torch.cuda.empty_cache()
     return counts
+
+
+def _with_scan(scan, run):
+    """``run()`` with the models' SSD scan replaced by ``scan`` (the
+    wrapper's own counter kept), then restored."""
+    real = ssd_ops.ssd_scan
+    scan.launches = real.launches
+    ssd_ops.ssd_scan = scan
+    try:
+        return run()
+    finally:
+        real.launches = scan.launches
+        ssd_ops.ssd_scan = real
+
+
+def scan_sensitivity(params, toks, cfg, want):
+    """What the bf16 logits check measures, printed: the share of the
+    scan's bf16 outputs, over every layer of this prefill, that differ
+    from the plain version's on the same inputs; and how far the plain
+    path's logits move when that share of its scan outputs, chosen at
+    random (seeded), are moved by one bf16 ulp."""
+    real = ssd_ops.ssd_scan
+    diff = [0, 0]
+
+    def both(x, a, Bm, C, *, chunk, force_ref=False):
+        got = real(x, a, Bm, C, chunk=chunk)
+        plain = real(x, a, Bm, C, chunk=chunk, force_ref=True)
+        diff[0] += int((got != plain).sum())
+        diff[1] += got.numel()
+        return got
+
+    _with_scan(both, lambda: prefill(params, {"tokens": toks}, cfg))
+    print(f"  scan outputs differing from the plain path's in bf16: "
+          f"{diff[0]} of {diff[1]} ({diff[0] / diff[1]:.2e}) over "
+          f"{cfg.num_layers} layers")
+    for rate in (1e-5, 1e-4):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+
+        def flipped(x, a, Bm, C, *, chunk, force_ref=False):
+            y = real(x, a, Bm, C, chunk=chunk, force_ref=True)
+            pick = torch.rand(y.shape, generator=gen, device=y.device) < rate
+            up = torch.rand(y.shape, generator=gen, device=y.device) < 0.5
+            step = torch.where(up, 1, -1).to(torch.int16)
+            return torch.where(pick, (y.view(torch.int16) + step)
+                               .view(torch.bfloat16), y)
+
+        out, _ = _with_scan(flipped, lambda: prefill(
+            params, {"tokens": toks}, cfg, force_ref=True))
+        moved = float((out.float() - want).norm() / want.norm())
+        print(f"  plain path with {rate:g} of its scan outputs moved by one "
+              f"bf16 ulp: logits rel L2 {moved:.3e} from the plain path")
 
 
 # ---------------------------------------------------------------------------
@@ -1640,6 +1738,27 @@ def ptxas_spills(log: str) -> dict:
     return spills
 
 
+def ptxas_by_kernel(log: str, names) -> dict:
+    """``{name: (registers, spill stores, spill loads)}`` from a
+    ``-Xptxas -v`` report, for the kernels whose mangled names hold one
+    of ``names``."""
+    out, name, spill = {}, None, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            mangled = line.split("Function properties for ", 1)[1]
+            name = next((n for n in names if n in mangled), None)
+            spill = None
+        elif name is not None and "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            spill = (int(found[1]), int(found[2]))
+        elif name is not None and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            out[name] = (regs,) + (spill or (0, 0))
+            name = None
+    return out
+
+
 def check_tc_spills(log: str) -> None:
     """Every bf16 tensor-core flash instance (D 64, 128, 256) compiled
     with no spill, as the kernel's register budget is meant to give."""
@@ -1680,6 +1799,11 @@ def main() -> int:
             print(f"  {line}" + (f" (x{count})" if count > 1 else ""))
         if source == flash_ops.SOURCE:
             check_tc_spills(rec["log"])
+        if source == ssd_ops.SOURCE:
+            for name, (regs, st, ld) in ptxas_by_kernel(
+                    rec["log"], SSD_KERNELS).items():
+                print(f"  B6 {name}: {regs} registers, {st} bytes spill "
+                      f"stores, {ld} bytes spill loads")
 
     print("[kernels]")
     max_err, rows, rows256 = phase_kernels()

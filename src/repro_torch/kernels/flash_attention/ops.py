@@ -5,7 +5,8 @@ For a CUDA tensor :func:`flash_attention` launches
 ``csrc/flash_attention.cu`` (built with nvcc at first use, bound through
 ctypes) or raises; it never falls back to the plain version.  The dtype
 picks the kernel: bf16 runs on the tensor cores (wgmma, TMA), fp32 on the
-SIMT cores.  For a CPU tensor it computes
+SIMT cores.  Under grad mode it refuses CUDA inputs that require grad
+(no backward yet, ROADMAP A2).  For a CPU tensor it computes
 :func:`~.ref.flash_attention_ref`.  ``force_ref=True``
 computes the plain version on any device; ``chip_smoke.py`` uses it to
 hold the kernel against its plain version, and the serve path never sets
@@ -21,6 +22,7 @@ from pathlib import Path
 import torch
 
 from ..build import load
+from ..guard import refuse_grad
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "SOURCE"]
@@ -82,6 +84,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, force_ref=False):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]

@@ -3,7 +3,8 @@ on CPU tensors.
 
 For a CUDA tensor :func:`lru_scan` launches ``csrc/lru_scan.cu`` (built
 with nvcc at first use, bound through ctypes) or raises; it never falls
-back to the plain version.  For a CPU tensor it computes
+back to the plain version; under grad mode it refuses CUDA inputs that
+require grad (no backward yet, ROADMAP A2).  For a CPU tensor it computes
 :func:`~.ref.lru_scan_ref`.  ``force_ref=True`` computes the plain version
 on any device; ``chip_smoke.py`` uses it to hold the kernel against its
 plain version, and the serve path never sets it.  ``lru_scan.launches``
@@ -18,6 +19,7 @@ from pathlib import Path
 import torch
 
 from ..build import load
+from ..guard import refuse_grad
 from .ref import lru_scan_ref, lru_sequential_ref
 
 __all__ = ["lru_scan", "lru_scan_ref", "lru_sequential_ref", "SOURCE"]
@@ -56,6 +58,7 @@ def lru_scan(a, b, *, force_ref=False):
         return lru_scan_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"lru_scan: no kernel for device {a.device}")
+    refuse_grad("lru_scan", a, b)
     _check(a, b)
     B, S, C = a.shape
     h = torch.empty_like(a)

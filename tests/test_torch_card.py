@@ -21,6 +21,13 @@ Kernels and tolerances:
   (tensor cores) also within half a bf16 ulp of the plain version in
   fp32, plus 1e-5;
 * B6 SSD scan: 3e-4 in fp32 (tests/test_kernels.py:71-72), 3e-2 in bf16;
+  the bf16 kernels (tensor cores, chunks in parallel) also within half a
+  bf16 ulp of the plain version in fp32 plus 3e-4 (chip_smoke.py's bound)
+  at the JAX package's kernel-test shapes, a 100-token chunk, Q, N and P
+  off the mma tile, element-by-element loads (N, P not multiples of 8),
+  two P tiles, and mamba2's serve shape with its fast decays;
+* every kernel wrapper refuses, under grad mode, a CUDA input that
+  requires grad (no backward yet, ROADMAP A2);
 * B7 RG-LRU scan: 1e-5 in fp32 (tests/test_kernels.py:86-87) against the
   plain doubling scan and the sequential loop, at the JAX package's test
   shapes, ragged S and C, and recurrentgemma-9b's serve shapes; a long
@@ -265,6 +272,65 @@ def test_ssd_kernel_matches_plain_version(cuda_device, dtype, tol):
     assert ssd_ops.ssd_scan.launches == before + 1
     want = ssd_ops.ssd_scan(x, a, Bm, C, chunk=128, force_ref=True)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# (B, S, H, P, G, N, chunk): the JAX package's kernel-test shapes
+# (tests/test_kernels.py), one chunk of 100 tokens at mamba2's widths, Q,
+# N and P all off the 16 x 8 mma tile, N and P not multiples of 8 (the
+# element-by-element loads), and P over two 64-column tiles
+SSD_BF16_SHAPES = [(2, 64, 4, 16, 1, 32, 16), (1, 128, 2, 32, 2, 16, 32),
+                   (1, 64, 8, 8, 1, 8, 64), (2, 96, 4, 16, 4, 16, 32),
+                   (1, 100, 32, 64, 1, 128, 128), (2, 300, 6, 24, 3, 40, 100),
+                   (1, 96, 4, 12, 2, 20, 48), (1, 128, 2, 80, 1, 16, 64)]
+SSD_TOL, BF16_HALF_ULP = 3e-4, 2.0 ** -8
+
+
+@pytest.mark.parametrize("shape,fast", [(s, False) for s in SSD_BF16_SHAPES]
+                         + [((1, 1024, 32, 64, 1, 128, 128), True)])
+def test_ssd_bf16_within_half_ulp_of_fp32(cuda_device, shape, fast):
+    """|got - want| <= 2^-8 |want| + 3e-4 against the plain version in fp32
+    on the same bf16 inputs; ``fast``: every other head decays as
+    exp(-(4 + 16 u)), mamba2's fast heads."""
+    B, S, H, P, G, N, chunk = shape
+    x, a, Bm, C = (v.to(cuda_device)
+                   for v in _ssd_inputs(B, S, H, P, G, N, seed=sum(shape)))
+    if fast:
+        g = torch.Generator(device=cuda_device).manual_seed(9)
+        u = torch.rand(B, S, (H + 1) // 2, generator=g, device=cuda_device)
+        a[:, :, ::2] = torch.exp(-(4 + 16 * u))
+    x, Bm, C = (v.to(torch.bfloat16) for v in (x, Bm, C))
+    before = ssd_ops.ssd_scan.launches
+    got = ssd_ops.ssd_scan(x, a, Bm, C, chunk=chunk)
+    assert ssd_ops.ssd_scan.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = ssd_ops.ssd_scan(x.float(), a, Bm.float(), C.float(), chunk=chunk,
+                            force_ref=True)
+    excess = (got.float() - want).abs() - BF16_HALF_ULP * want.abs()
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(excess.max()) <= SSD_TOL
+
+
+# -- autograd: the CUDA route refuses what it would cut (C8) -----------------
+def _grad_calls(device):
+    q = torch.zeros(1, 8, 2, 64, device=device, requires_grad=True)
+    kv = torch.zeros(1, 8, 1, 64, device=device)
+    x = torch.zeros(1, 16, 2, 8, device=device, requires_grad=True)
+    a = torch.full((1, 16, 2), 0.5, device=device)
+    bm = torch.zeros(1, 16, 1, 8, device=device)
+    la = torch.full((1, 16, 4), 0.5, device=device)
+    lb = torch.zeros(1, 16, 4, device=device, requires_grad=True)
+    return {"flash_attention": lambda: flash_ops.flash_attention(q, kv, kv),
+            "ssd_scan": lambda: ssd_ops.ssd_scan(x, a, bm, bm, chunk=8),
+            "lru_scan": lambda: lru_ops.lru_scan(la, lb)}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan", "lru_scan"])
+def test_wrapper_refuses_cuda_input_that_requires_grad(cuda_device, name):
+    call = _grad_calls(cuda_device)[name]
+    with pytest.raises(KampingError, match="ROADMAP A2"):
+        call()
+    with torch.no_grad():  # no graph to cut: the kernel runs
+        assert call().grad_fn is None
 
 
 # -- RG-LRU scan (B7) ---------------------------------------------------------

@@ -219,3 +219,126 @@ def test_init_block_layouts_match_reference_shapes():
             a = mine[k]["w"] if isinstance(mine[k], dict) else mine[k]
             b = carried[k]["w"] if isinstance(carried[k], dict) else carried[k]
             assert a.shape == b.shape and a.dtype == b.dtype, k
+
+
+# -- the bf16 kernel's precision argument -------------------------------------
+# The bf16 CUDA kernel puts the state path on bf16 tensor cores with fp32
+# sums: (B u)^T x and C S_prev, where the fp32 operand (B u, S_prev) goes
+# in as two bf16 halves, v = bf16(v) + bf16(v - bf16(v)).  The intra-chunk
+# path, W = C B^T * exp(la_i - la_j) and W x, stays in fp32 FMAs in the
+# plain version's order (a tensor-core W x changes the order of the sums,
+# which the bf16 model's logits do not tolerate; PERF.md, PR 21).  These
+# tests emulate that arithmetic on the CPU and hold it to the card's
+# bound: within half a bf16 ulp (2^-8 |y|) of the plain version in fp32 on
+# the same inputs, plus 3e-4 (chip_smoke.py's SSD_TOL); and show that each
+# tensor-core operand rounded once to bf16 misses it.
+SSD_TOL, BF16_HALF_ULP = 3e-4, 2.0 ** -8
+KERNEL = {"Bu": 2, "S_prev": 2, "W": 0}  # bf16 pieces; 0: fp32, no rounding
+
+
+def _bf16_inputs(B, S, H, P, G, N, fast, seed=7):
+    """chip_smoke.py's SSD inputs: with ``fast`` every other head decays as
+    exp(-(4 + 16 u)), mamba2's fast heads."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, S, H, P).astype(np.float32) * 0.5
+    a = np.clip(rng.rand(B, S, H).astype(np.float32), 0.3, 0.99)
+    if fast:
+        a[:, :, ::2] = np.exp(-(4 + 16 * rng.rand(B, S, (H + 1) // 2)))
+    Bm = rng.randn(B, S, G, N).astype(np.float32) * 0.3
+    C = rng.randn(B, S, G, N).astype(np.float32) * 0.3
+    x, a, Bm, C = _t(x, a.astype(np.float32), Bm, C)
+    return x.to(torch.bfloat16), a, Bm.to(torch.bfloat16), C.to(torch.bfloat16)
+
+
+def _emulate_tensor_core_scan(x, a, Bm, C, Q, pieces=KERNEL):
+    """The bf16 kernel's arithmetic in fp32 on the CPU.  ``pieces`` maps
+    each fp32 operand (B u, S_prev, W) to the bf16 pieces it is multiplied
+    as (0: kept in fp32); the output is rounded once."""
+    def operand(v, name):
+        out, rest = torch.zeros_like(v), v
+        for _ in range(pieces[name]):
+            piece = rest.to(torch.bfloat16).float()
+            out, rest = out + piece, rest - piece
+        return out if pieces[name] else v
+
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep, nc = H // G, S // Q
+    xc = x.float().reshape(Bsz, nc, Q, H, P)
+    Bc = Bm.float().reshape(Bsz, nc, Q, G, N).repeat_interleave(rep, 3)
+    Cc = C.float().reshape(Bsz, nc, Q, G, N).repeat_interleave(rep, 3)
+    la = torch.cumsum(torch.log(torch.clamp_min(
+        a.reshape(Bsz, nc, Q, H), 1e-37)), dim=2)
+    # (a) chunk states from B u in pieces
+    u = torch.exp(la[:, :, -1:] - la)
+    cs = torch.einsum("bnqhk,bnqhp->bnhkp",
+                      operand(Bc * u[..., None], "Bu"), xc)
+    # (b) the fp32 carry
+    state = torch.zeros((Bsz, H, N, P))
+    prev = []
+    for n in range(nc):
+        prev.append(state)
+        state = state * torch.exp(la[:, n, -1])[..., None, None] + cs[:, n]
+    s_prev = operand(torch.stack(prev, 1), "S_prev")
+    # (c) W from C B^T, masked before exp
+    seg = la[:, :, :, None, :] - la[:, :, None, :, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :,
+                                                          None]
+    w = torch.einsum("bnihk,bnjhk->bnijh", Cc, Bc) * torch.exp(
+        torch.where(causal, seg, -torch.inf))
+    y = (torch.einsum("bnijh,bnjhp->bnihp", operand(w, "W"), xc)
+         + torch.exp(la)[..., None]
+         * torch.einsum("bnihk,bnhkp->bnihp", Cc, s_prev))
+    return y.reshape(Bsz, S, H, P).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["mild", "fast"])
+@pytest.mark.parametrize("pieces, within", [
+    (KERNEL, True),                          # the kernel
+    (dict(KERNEL, W=2), True),               # W in halves on the cores too
+    (dict(KERNEL, Bu=1), False),             # B u rounded once
+    (dict(KERNEL, S_prev=1), False),         # S_prev rounded once
+    (dict(KERNEL, W=1), False),              # W rounded once
+], ids=["kernel", "W_halves", "Bu_once", "S_prev_once", "W_once"])
+def test_split_operands_keep_bf16_within_half_ulp_of_fp32(fast, pieces,
+                                                          within):
+    """mamba2's widths (H 8 of its 32 heads, P 64, N 128, Q 128) over 4
+    chunks: the tensor-core operands in two bf16 halves keep the bf16
+    output within half an ulp of fp32 plus 3e-4; any one rounded once does
+    not."""
+    x, a, Bm, C = _bf16_inputs(1, 512, 8, 64, 1, 128, fast)
+    want32 = ssd_scan_ref(x.float(), a, Bm.float(), C.float(), chunk=128)
+    got = _emulate_tensor_core_scan(x, a, Bm, C, 128, pieces=pieces)
+    excess = float(((got.float() - want32).abs()
+                    - BF16_HALF_ULP * want32.abs()).max())
+    assert (excess <= SSD_TOL) == within, excess
+
+
+_PTXAS_SSD = """\
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13ssd_chunk_outEPK
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 121 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_15ssd_state_carryEPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 31 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13ssd_scan_fp32EPKf
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Function properties for _Z12flash_fwd_tcILi64EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reports_b6_registers_and_spills():
+    """The smoke script's [build] report of B6's kernels, by kernel."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    assert chip_smoke.ptxas_by_kernel(_PTXAS_SSD, chip_smoke.SSD_KERNELS) == {
+        "ssd_chunk_out": (121, 0, 0), "ssd_state_carry": (31, 0, 0),
+        "ssd_scan_fp32": (128, 8, 12)}
