@@ -342,3 +342,69 @@ def test_chip_smoke_reports_b6_registers_and_spills():
     assert chip_smoke.ptxas_by_kernel(_PTXAS_SSD, chip_smoke.SSD_KERNELS) == {
         "ssd_chunk_out": (121, 0, 0), "ssd_state_carry": (31, 0, 0),
         "ssd_scan_fp32": (128, 8, 12)}
+
+
+_PTXAS_B6 = """\
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13ssd_chunk_outEPK
+    0 bytes stack frame, {out_st} bytes spill stores, {out_ld} bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_15ssd_state_carryEPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_15ssd_chunk_stateEPK
+    0 bytes stack frame, 0 bytes spill stores, {state_ld} bytes spill loads
+ptxas info    : Used 75 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13ssd_scan_fp32EPKf
+    8 bytes stack frame, {fp32_st} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("log, error", [
+    (_PTXAS_B6.format(out_st=0, out_ld=0, state_ld=0, fp32_st=0), None),
+    (_PTXAS_B6.format(out_st=0, out_ld=0, state_ld=0, fp32_st=8), None),
+    (_PTXAS_B6.format(out_st=4, out_ld=0, state_ld=0, fp32_st=0), "spill"),
+    (_PTXAS_B6.format(out_st=0, out_ld=4, state_ld=0, fp32_st=0), "spill"),
+    (_PTXAS_B6.format(out_st=0, out_ld=0, state_ld=8, fp32_st=0), "spill"),
+    (_PTXAS_B6.format(out_st=0, out_ld=0, state_ld=0, fp32_st=0)
+     .split("ptxas info    : Function properties for _ZN12_GLOBAL__N_15"
+            "ssd_chunk_state")[0], "missing"),
+], ids=["clean", "fp32_spill_allowed", "out_stores", "out_loads",
+        "state_loads", "state_missing"])
+def test_chip_smoke_b6_spill_check(log, error):
+    """The smoke script's [build] check: each of B6's three bf16 kernels in
+    the ptxas report with no spill; the fp32 SIMT kernel may spill."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    if error is None:
+        chip_smoke.check_b6_spills(log)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke.check_b6_spills(log)
+
+
+def test_ssd_precision_probe_on_cpu(capsys):
+    """The rounding probe (``repro_torch.launch.ssd_precision``) at the
+    smoke size on the CPU, where the kernel path is the plain version: the
+    two paths agree exactly, in bf16 and in fp32, and one-ulp flips of
+    the plain path's scan outputs move its logits."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import ssd_precision
+
+    real, launches = ssd_ops.ssd_scan, ssd_ops.ssd_scan.launches
+    ssd_precision.main(["--smoke", "--device", "cpu", "--prompt-len", "40",
+                        "--rates", "0.1"])
+    assert ssd_ops.ssd_scan is real and real.launches == launches
+    out = capsys.readouterr().out
+    assert "bf16 kernel path from the bf16 plain path: 0.000e+00" in out
+    assert "fp32 kernel path from the fp32 plain path: 0.000e+00" in out
+    assert "differing from the plain version's in bf16: 0 of " in out
+    moved = [line for line in out.splitlines() if "moved by one" in line]
+    assert len(moved) == 1 and float(moved[0].rsplit(" ", 1)[1]) > 0
+    own = [line for line in out.splitlines() if "own bf16" in line]
+    assert len(own) == 1 and float(own[0].split(": ")[1].split(",")[0]) > 0
