@@ -90,8 +90,12 @@ Phases (any failure raises and the script exits non-zero):
    (the doubling scan) and the sequential loop on the card, within 1e-5
    in fp32: the JAX package's kernel-test shapes, recurrentgemma-9b's
    serve shapes (B = 1, C = 4096, S = 100, 1024, 2048, 2560), B = 3 with
-   a ragged C and S, and S = 2560 with decays within 1e-3 of 1; card
-   times at S = 2048 and 2560 beside the plain version and the bound.
+   a ragged C and S, and S = 2560 with decays within 1e-3 of 1; five
+   calls at S = 2560 bitwise equal (the one-pass kernel's look-back
+   carry is the same fmafs wherever it stops); the CUDA launches of one
+   call and each one's device time (profiler); card times at each serve
+   shape beside the plain version and the bound.  ``[build]`` fails if
+   either B7 kernel spills.
 13. reference-hybrid — a small fp32 recurrentgemma (head_dim 256) on the
    card (B7 and B5b) matches the same model on the CPU (plain versions)
    within 1e-4: prefill past the window and 4 decode steps.
@@ -271,9 +275,10 @@ SSM_PROMPT_LENS = (100, 128, 256, 384, 512, 640, 896, 1024)
 LRU_TEST_SHAPES = [(2, 64, 32), (1, 128, 64), (1, 32, 128), (3, 64, 32)]
 LRU_SERVE_SHAPES = [(1, s, 4096) for s in (100, 1024, 2048, 2560)]
 LRU_MORE_SHAPES = [(3, 1000, 4100), (3, 37, 5)]
-LRU_TIME_SHAPES = [(1, 2048, 4096), (1, 2560, 4096)]
 LRU_TOL = 1e-5
 LRU_SOURCE = "src/repro_torch/kernels/rg_lru/csrc/lru_scan.cu"
+# B7's one-pass kernel: 16-byte copies, and element by element
+LRU_KERNELS = ("lru_scan_vec", "lru_scan_elem")
 LRU_REPLACES = "src/repro/kernels/rg_lru/rg_lru.py:59"
 HYBRID_PROMPT_LENS = (100, 256, 512, 1024, 1536, 2048, 2304, 2560)
 HYBRID_MAX_LEN = 3072
@@ -1212,9 +1217,10 @@ def phase_ssd_kernel():
             n, times = cuda_launches(lambda: ssd_ops.ssd_scan(
                 x, a, Bm, C, chunk=shape[-1]))
             print(f"  CUDA launches per call at S={shape[1]} "
-                  f"{str(dtype)[6:]}: {n:g} (profiler, device us per "
-                  "call: " + ", ".join(f"{k} {v:.2f}"
-                                       for k, v in times.items()) + ")")
+                  f"{str(dtype)[6:]}: {n:g} (profiler, by name: launches "
+                  "x device us per call: " + ", ".join(
+                      f"{k} {c:g} x {us:.2f}"
+                      for k, (c, us) in times.items()) + ")")
 
     rows = []
     for shape in SSD_TIME_SHAPES:
@@ -1236,9 +1242,9 @@ def phase_ssd_kernel():
 
 
 def cuda_launches(fn, calls=10):
-    """``(launches, {kernel: us})``: the CUDA kernels one call of ``fn``
-    runs and each one's device time, per call, from the profiler over
-    ``calls`` calls."""
+    """``(launches, {kernel: (launches, us)})``: the CUDA kernels (and
+    memsets) one call of ``fn`` runs, in all and by name, with each one's
+    device time, per call, from the profiler over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1255,7 +1261,8 @@ def cuda_launches(fn, calls=10):
               or getattr(e, "cuda_time_total", 0))
         if us and e.count:  # "(anonymous namespace)::ssd_chunk_out(...)"
             name = e.key.replace("(anonymous namespace)::", "")
-            times[name.split("(")[0].split("::")[-1]] = us / calls
+            times[name.split("(")[0].split("::")[-1].strip()] = (
+                e.count / calls, us / calls)
     return n / calls, times
 
 
@@ -1464,8 +1471,26 @@ def phase_lru_kernel():
     if not float(got.abs().max()) <= 0.01 / (1 - 0.999) + 1e-3:
         raise AssertionError("lru_scan: |h| above b / (1 - a)")
 
-    rows = []
-    for shape in LRU_TIME_SHAPES:
+    # one pass with a look-back carry: the same fmafs in the same order
+    # wherever a look-back stops, so h is bitwise the same every call
+    shape = (1, 2560, 4096)
+    a, b = lru_inputs(shape, gen)
+    first = lru_ops.lru_scan(a, b)
+    same = all(torch.equal(first, lru_ops.lru_scan(a, b)) for _ in range(4))
+    print(f"  check {shape} five calls bitwise equal: "
+          f"{'ok' if same else 'MISMATCH'}")
+    if not same:
+        raise AssertionError("lru_scan: two calls differ")
+    for shape in (LRU_SERVE_SHAPES[0], LRU_SERVE_SHAPES[-1]):
+        a, b = lru_inputs(shape, gen)
+        n, times = cuda_launches(lambda: lru_ops.lru_scan(a, b))
+        print(f"  CUDA launches per call at S={shape[1]}: {n:g} (profiler, "
+              "by name: launches x device us per call: " + ", ".join(
+                  f"{k} {c:g} x {us:.2f}" for k, (c, us) in times.items())
+              + ")")
+
+    rows = {}
+    for shape in LRU_SERVE_SHAPES:
         a, b = lru_inputs(shape, gen)
         kern = lambda: lru_ops.lru_scan(a, b)
         plain = lambda: lru_ops.lru_scan(a, b, force_ref=True)
@@ -1474,10 +1499,10 @@ def phase_lru_kernel():
         nbytes = 12 * B * S * C  # a and b read once, h written once
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = 2 * B * S * C / PEAK_FLOPS[torch.float32] * 1e3
-        rows.append(dict(ms=ms, plain_ms=plain_ms,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations"))
+        rows[S] = dict(ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
         print(f"  time {shape} fp32 (card, graph replay): kernel {ms:.5f} "
               f"ms, plain {plain_ms:.5f} ms, bound {t_bytes:.5f} ms (bytes: "
               f"{nbytes} bytes; the {2 * B * S * C} flops take "
@@ -1740,6 +1765,25 @@ def check_b6_spills(log: str) -> None:
                              f"{spilled}")
 
 
+def check_b7_spills(log: str) -> None:
+    """Print B7's registers and spills by kernel; fail unless both of its
+    kernels are in the report with no spill (a spilled chunk would bring
+    back through local memory the second read of a and b that the
+    one-pass design removes)."""
+    report = ptxas_by_kernel(log, LRU_KERNELS)
+    for name, (regs, st, ld) in report.items():
+        print(f"  B7 {name}: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads")
+    missing = [n for n in LRU_KERNELS if n not in report]
+    if missing:
+        raise AssertionError(f"B7 kernels missing from the ptxas report: "
+                             f"{missing}")
+    spilled = {n: report[n][1:] for n in LRU_KERNELS
+               if report[n][1:] != (0, 0)}
+    if spilled:
+        raise AssertionError(f"B7 kernels spill (stores, loads): {spilled}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1768,6 +1812,8 @@ def main() -> int:
             check_tc_spills(rec["log"])
         if source == ssd_ops.SOURCE:
             check_b6_spills(rec["log"])
+        if source == lru_ops.SOURCE:
+            check_b7_spills(rec["log"])
 
     print("[kernels]")
     max_err, rows, rows256 = phase_kernels()
@@ -1839,7 +1885,7 @@ def main() -> int:
         ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"],
         library_ms=None))
-    lru_row = lru_rows[0]  # S = 2048, the window of recurrentgemma-9b
+    lru_row = lru_rows[2048]  # the window of recurrentgemma-9b
     table["kernels"].append(dict(
         name="lru_scan", route="cuda", source=LRU_SOURCE,
         replaces=LRU_REPLACES, **launches("lru_scan"), max_abs_err=lru_err,

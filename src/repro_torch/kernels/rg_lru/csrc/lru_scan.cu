@@ -1,7 +1,8 @@
 // RG-LRU linear-recurrence scan for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
-//   src/repro/kernels/rg_lru/rg_lru.py  lru_scan_pallas (body _kernel).
+//   src/repro/kernels/rg_lru/rg_lru.py:59 lru_scan_pallas (body _kernel
+//   at :25).
 // Same function: h_t = a_t * h_{t-1} + b_t with h_0 = 0, elementwise over
 // the C channels and sequential over the S time steps, a, b and h all
 // (B, S, C) fp32.  Unlike the Pallas kernel (which asserts S % block_t
@@ -12,142 +13,320 @@
 // so bytes bound it: a and b read once and h written once, 12 B S C
 // bytes over 3.35e12 B/s (30.0 us at B = 1, S = 2048, C = 4096).
 //
-// Design (a first, simple and correct kernel).  The TPU walks time in a
-// sequential grid axis with a VMEM carry; blocks on the card run in no
-// order, and at the serve shape (B = 1, C = 4096) one thread per channel
-// would give 4096 threads, a few percent of the card, each walking
-// thousands of dependent steps.  So time is cut into chunks of T steps,
-// and every (channel, chunk) gets its own thread, in three passes:
-//   1. summary: each (channel, chunk) but the last walks its chunk from
-//      h = 0 and writes the chunk's affine map (prod a, local h);
-//   2. carry: one thread per channel folds the maps in time order,
-//      carry_k = A_k * carry_{k-1} + H_k, and writes the carry that
-//      enters each chunk over the local h (nchunks - 1 steps);
-//   3. apply: each (channel, chunk) walks its chunk again from the carry
-//      that enters it, h = a * h + b, and writes h.
-// Inside a chunk the arithmetic is the sequential loop's, so only the
-// carries round differently from lru_sequential_ref.  Neighbouring
-// threads take neighbouring channels, so every load and store of a
-// warp is one 128-byte line; loads of a and b are batched 8 time steps
-// ahead of the dependent FMA chain.  Passes 1 and 3 read a and b twice,
-// so the traffic is 20 B S C bytes against the bound's 12.
+// Design: one pass with a decoupled look-back carry (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// 2016).  Each element of a and b is read from device memory once, into
+// shared memory, and h is written once.  The TPU keeps the carry in VMEM
+// across a sequential time grid; blocks on the card run in no order, so
+// the carry crosses blocks through device memory.  One block takes a
+// tile of (batch, chunk of T steps, `tile` channels), one thread a
+// channel:
+//   1. Its tile id comes from a global atomic counter, not from
+//      blockIdx, in chunk-major order: the predecessors of a tile (same
+//      batch and channels, earlier chunks) have lower ids.  A block thus
+//      only ever waits on blocks that took their ids before it did, and
+//      so are running already; by induction on the id every wait ends
+//      (forward progress without co-residency of the whole grid).
+//   2. The tile's a and b are copied into shared memory (cp.async,
+//      16-byte copies of 4 neighbouring channels when `vec`, else one
+//      element each).  From here every thread runs on its own channel.
+//   3. It walks its channel from h = 0 to the chunk's map, A = prod a in
+//      time order and H = the walk with fmaf, and publishes it as the
+//      chunk's "aggregate".
+//   4. Look back: it reads its channel's words for the kWindow chunks
+//      before its own at once, takes the nearest one whose "inclusive"
+//      carry is published with every aggregate after it published, and
+//      folds those aggregates in time order, carry = fmaf(A_k, carry,
+//      H_k); a window with none is read again.  It publishes its own
+//      inclusive carry, fmaf(A, carry, H).  Wherever the look-back stops,
+//      the carry is the same sequence of fmafs from 0 over every earlier
+//      chunk's map, so h is bitwise the same from run to run and for
+//      every tile; only T changes it.
+//   5. Apply: it walks its chunk again from the carry entering it, out
+//      of shared memory, h = fmaf(a, h, b), and writes h (neighbouring
+//      threads, neighbouring channels: one 128-byte line a warp).
+// Status and value share one word, as in Merrill and Garland's kernel
+// when both fit a machine word: an aggregate is one 64-bit word {A, H}, an
+// inclusive carry one 32-bit word, each written with one relaxed store
+// and read with one relaxed load at GPU scope (L2; single-copy atomic),
+// and all ones means "not yet published": the card's arithmetic gives no
+// such float (its NaN is 0x7fffffff, and `word` maps any input NaN of
+// that pattern to it).  So publishing needs no flag, fence or barrier,
+// and a look-back is one read of a window.  Every spin is bounded by
+// %globaltimer and ends in __trap(), so a hang becomes an error.  The
+// last chunk publishes nothing; chunk 0 publishes no aggregate.
+//
+// Workspace (the wrapper's, per call): the aggregates, the inclusive
+// carries and the tile counter, set to all ones by one cudaMemsetAsync
+// (so a replayed CUDA graph starts from none published); the counter
+// counts from all ones.  A call is two CUDA launches: the memset and the
+// kernel.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // channels per block
-constexpr int kBatch = 8;      // time steps loaded ahead of the chain
+constexpr int kMaxTile = 128;  // channels (threads) per block
+constexpr int kWindow = 8;     // predecessors one look-back read covers
+constexpr unsigned kUnset = ~0u;  // a word not yet published
+constexpr uint64_t kSpinNs = 2000000000ull;  // a wait past 2 s is a hang
 
-// Walk time steps [t0, t1) of channel c from h, optionally writing h.
-// Returns the final h; *prod (when given) gets the product of the a's.
-template <bool kWrite, bool kProd>
-__device__ __forceinline__ float walk(const float* __restrict__ a,
-                                      const float* __restrict__ b,
-                                      float* __restrict__ out, long base,
-                                      int C, int t0, int t1, float h,
-                                      float* prod) {
-  float p = 1.f;
-  int t = t0;
-  for (; t + kBatch <= t1; t += kBatch) {
+__device__ __forceinline__ unsigned ld_word(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint64_t ld_pair(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_word(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_pair(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(sa), "l"(g) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(sa), "l"(g) : "memory");
+}
+
+// A published float: its bits, never kUnset (a NaN keeps its value as
+// the canonical NaN; the card's arithmetic makes no other).
+__device__ __forceinline__ unsigned word(float v) {
+  const unsigned u = __float_as_uint(v);
+  return u == kUnset ? 0x7fffffffu : u;
+}
+
+struct Args {
+  const float* a;
+  const float* b;
+  float* h;
+  uint64_t* agg;   // (nchunks - 1, B, C): {A, H} of each chunk but the last
+  unsigned* inc;   // (nchunks - 1, B, C): the carry leaving each chunk
+  unsigned* counter;  // the tile counter, from kUnset
+  int B, S, C, T, nchunks, nct;
+};
+
+// The carry entering chunk k > 0 of this thread's channel.  `slot` is
+// chunk k's index into the workspace, `step` one chunk's stride.  One
+// read of the window of kWindow predecessors; the nearest one with its
+// inclusive carry published, with every aggregate after it published,
+// gives the carry: that inclusive carry, then the aggregates after it
+// folded in time order.  A window that has none is read again (chunk 0
+// publishes its inclusive carry first, and every chunk's waits are on
+// lower ones, so this ends) until %globaltimer says the wait is a hang.
+__device__ __forceinline__ float look_back(const Args& p, int k, long slot,
+                                           long step) {
+  uint64_t deadline = 0;
+  unsigned backoff = 32;
+  for (;;) {
+    unsigned inc[kWindow];
+    uint64_t agg[kWindow];
+#pragma unroll
+    for (int i = 0; i < kWindow; ++i) {
+      const long s = slot - (i + 1) * step;
+      inc[i] = i < k ? ld_word(p.inc + s) : kUnset;
+      agg[i] = i < k ? ld_pair(p.agg + s) : ~0ull;
+    }
+    int from = -1;  // window index of the inclusive carry
+    bool open = false;  // an aggregate not yet published before it
+#pragma unroll
+    for (int i = 0; i < kWindow; ++i) {
+      if (from < 0 && !open) {
+        if (inc[i] != kUnset)
+          from = i;
+        else if (agg[i] == ~0ull)
+          open = true;
+      }
+    }
+    if (from >= 0) {
+      float carry = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWindow; ++i)
+        if (i == from) carry = __uint_as_float(inc[i]);
+#pragma unroll
+      for (int i = kWindow - 1; i >= 0; --i)
+        if (i < from)
+          carry = fmaf(__uint_as_float((unsigned)(agg[i] >> 32)), carry,
+                       __uint_as_float((unsigned)agg[i]));
+      return carry;
+    }
+    if (deadline == 0) deadline = now_ns() + kSpinNs;
+    if (now_ns() > deadline) __trap();
+    __nanosleep(backoff);
+    backoff = min(2 * backoff, 1024u);
+  }
+}
+
+constexpr int kBatch = 8;  // time steps read from shared memory ahead
+
+// This thread's chunk map from h = 0: *A = prod a, *H = the walk.
+__device__ __forceinline__ void walk_map(const float* __restrict__ sa,
+                                         const float* __restrict__ sb,
+                                         int stride, int rows, float* A,
+                                         float* H) {
+  float p = 1.f, h = 0.f;
+  int r = 0;
+  for (; r + kBatch <= rows; r += kBatch) {
     float av[kBatch], bv[kBatch];
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
-      const long idx = base + (long)(t + i) * C;
-      av[i] = __ldg(a + idx);
-      bv[i] = __ldg(b + idx);
+      av[i] = sa[(r + i) * stride];
+      bv[i] = sb[(r + i) * stride];
     }
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
       h = fmaf(av[i], h, bv[i]);
-      if (kProd) p *= av[i];
-      if (kWrite) out[base + (long)(t + i) * C] = h;
+      p *= av[i];
     }
   }
-  for (; t < t1; ++t) {
-    const long idx = base + (long)t * C;
-    const float av = __ldg(a + idx);
-    h = fmaf(av, h, __ldg(b + idx));
-    if (kProd) p *= av;
-    if (kWrite) out[idx] = h;
+  for (; r < rows; ++r) {
+    h = fmaf(sa[r * stride], h, sb[r * stride]);
+    p *= sa[r * stride];
   }
-  if (kProd) *prod = p;
-  return h;
+  *A = p;
+  *H = h;
 }
 
-// grid (ceil(C / kThreads), nchunks - 1, B)
-__global__ void __launch_bounds__(kThreads)
-    lru_summary(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ sum_a, float* __restrict__ sum_h, int S,
-                int C, int T, int nsum) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int k = blockIdx.y, bb = blockIdx.z;
-  const int t0 = k * T, t1 = min(t0 + T, S);
-  float prod;
-  const float h = walk<false, true>(a, b, nullptr, (long)bb * S * C + c, C,
-                                    t0, t1, 0.f, &prod);
-  const long s = ((long)bb * nsum + k) * C + c;
-  sum_a[s] = prod;
-  sum_h[s] = h;
-}
-
-// grid (ceil(C / kThreads), B): sum_h[k] becomes the carry entering
-// chunk k + 1.
-__global__ void __launch_bounds__(kThreads)
-    lru_carry(const float* __restrict__ sum_a, float* __restrict__ sum_h,
-              int C, int nsum) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const long base = (long)blockIdx.y * nsum * C + c;
-  float carry = 0.f;
-  for (int k = 0; k < nsum; ++k) {
-    const long s = base + (long)k * C;
-    carry = fmaf(sum_a[s], carry, sum_h[s]);
-    sum_h[s] = carry;
+// Walk this thread's chunk from h and write every step's h.
+__device__ __forceinline__ void walk_out(const float* __restrict__ sa,
+                                         const float* __restrict__ sb,
+                                         int stride, int rows, float h,
+                                         float* __restrict__ out, int C) {
+  int r = 0;
+  for (; r + kBatch <= rows; r += kBatch) {
+    float av[kBatch], bv[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      av[i] = sa[(r + i) * stride];
+      bv[i] = sb[(r + i) * stride];
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      h = fmaf(av[i], h, bv[i]);
+      out[(long)(r + i) * C] = h;
+    }
+  }
+  for (; r < rows; ++r) {
+    h = fmaf(sa[r * stride], h, sb[r * stride]);
+    out[(long)r * C] = h;
   }
 }
 
-// grid (ceil(C / kThreads), nchunks, B)
-__global__ void __launch_bounds__(kThreads)
-    lru_apply(const float* __restrict__ a, const float* __restrict__ b,
-              const float* __restrict__ carry, float* __restrict__ h, int S,
-              int C, int T, int nsum) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int k = blockIdx.y, bb = blockIdx.z;
-  const int t0 = k * T, t1 = min(t0 + T, S);
-  const float h0 =
-      k == 0 ? 0.f : carry[((long)bb * nsum + (k - 1)) * C + c];
-  walk<true, false>(a, b, h, (long)bb * S * C + c, C, t0, t1, h0, nullptr);
+// One block, one tile: copy in, aggregate, look back, apply.
+template <bool kVec>
+__device__ __forceinline__ void scan_tile(const Args& p) {
+  extern __shared__ __align__(16) float smem[];  // a, then b: T x tile
+  __shared__ int s_id;
+  const int tile = blockDim.x, x = threadIdx.x;
+  if (x == 0) s_id = (int)(atomicAdd(p.counter, 1u) + 1u);
+  __syncthreads();
+  const int id = s_id;
+  const int bb = id % p.B, rest = id / p.B;  // id = (k nct + ct) B + bb
+  const int ct = rest % p.nct, k = rest / p.nct;
+  const int t0 = k * p.T, rows = min(p.T, p.S - t0);
+  const int c0 = ct * tile, cols = min(tile, p.C - c0);
+  const long base = ((long)bb * p.S + t0) * p.C + c0;
+  float* sa = smem;
+  float* sb = smem + p.T * tile;
+  if (kVec) {  // C % 4 == 0 and 16-byte aligned a, b: whole quads
+    const int q = cols / 4;
+    for (int i = x; i < rows * q; i += tile) {
+      const int r = i / q, j = 4 * (i - r * q);
+      const long g = base + (long)r * p.C + j;
+      cp_async16(sa + r * tile + j, p.a + g);
+      cp_async16(sb + r * tile + j, p.b + g);
+    }
+  } else {
+    for (int i = x; i < rows * cols; i += tile) {
+      const int r = i / cols, j = i - r * cols;
+      const long g = base + (long)r * p.C + j;
+      cp_async4(sa + r * tile + j, p.a + g);
+      cp_async4(sb + r * tile + j, p.b + g);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
+               ::: "memory");
+  __syncthreads();
+  if (x >= cols) return;
+
+  // From here each thread is on its own channel: nothing waits on the
+  // rest of the block.
+  const bool last = k == p.nchunks - 1;
+  const long step = (long)p.B * p.C;
+  const long slot = k * step + (long)bb * p.C + c0 + x;
+  float A = 1.f, H = 0.f, carry = 0.f;
+  if (!last) walk_map(sa + x, sb + x, tile, rows, &A, &H);
+  if (k > 0) {
+    if (!last)
+      st_pair(p.agg + slot, (uint64_t)word(A) << 32 | word(H));
+    carry = look_back(p, k, slot, step);
+  }
+  if (!last) st_word(p.inc + slot, word(fmaf(A, carry, H)));
+  walk_out(sa + x, sb + x, tile, rows, carry, p.h + base + x, p.C);
+}
+
+__global__ void __launch_bounds__(kMaxTile) lru_scan_vec(const Args p) {
+  scan_tile<true>(p);
+}
+__global__ void __launch_bounds__(kMaxTile) lru_scan_elem(const Args p) {
+  scan_tile<false>(p);
 }
 
 }  // namespace
 
-// a, b, h: (B, S, C) fp32, contiguous.  sum_a, sum_h: scratch of
-// (B, nchunks - 1, C) fp32 each, nchunks = ceil(S / T) (unused when
-// nchunks == 1).  Returns cudaGetLastError() after the launches (0 on
-// success).
+// a, b, h: (B, S, C) fp32, contiguous.  T: time steps a chunk; tile:
+// channels a block, a multiple of 32 up to 128.  vec: 16-byte copies (C
+// % 4 == 0, a and b 16-byte aligned).  ws: 12 (nchunks - 1) B C + 4
+// bytes, 8-byte aligned (the aggregates, the inclusive carries, the tile
+// counter), set to all ones here.  One block a tile.  Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int lru_scan_fwd(const float* a, const float* b, float* h,
-                            float* sum_a, float* sum_h, int B, int S, int C,
-                            int T, void* stream) {
+                            void* ws, int B, int S, int C, int T, int tile,
+                            int vec, void* stream) {
   if (B <= 0 || S <= 0 || C <= 0) return 0;
-  if (T <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T <= 0 || tile <= 0 || tile > kMaxTile || tile % 32 != 0 ||
+      reinterpret_cast<uintptr_t>(ws) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (vec && (C % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(b) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   const int nchunks = (S + T - 1) / T;
-  const int nsum = nchunks - 1;
-  if (nchunks > 65535) return (int)cudaErrorInvalidValue;
-  const int cblocks = (C + kThreads - 1) / kThreads;
-  if (nsum > 0) {
-    lru_summary<<<dim3(cblocks, nsum, B), kThreads, 0, st>>>(
-        a, b, sum_a, sum_h, S, C, T, nsum);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    lru_carry<<<dim3(cblocks, B), kThreads, 0, st>>>(sum_a, sum_h, C, nsum);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  lru_apply<<<dim3(cblocks, nchunks, B), kThreads, 0, st>>>(
-      a, b, sum_h, h, S, C, T, nsum);
+  const int nct = (C + tile - 1) / tile;
+  const long long ntiles = (long long)B * nchunks * nct;
+  const size_t smem = 2 * sizeof(float) * (size_t)T * tile;
+  if (ntiles >= (1ll << 31) - 1 || smem > 200 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t nsum = (size_t)(nchunks - 1) * B * C;
+  uint64_t* agg = static_cast<uint64_t*>(ws);
+  unsigned* inc = reinterpret_cast<unsigned*>(agg + nsum);
+  const Args args{a, b, h, agg, inc, inc + nsum,
+                  B, S, C, T, nchunks, nct};
+  auto kernel = vec ? lru_scan_vec : lru_scan_elem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(ws, 0xff, 12 * nsum + 4, st);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)ntiles, tile, smem, st>>>(args);
   return (int)cudaGetLastError();
 }

@@ -8,31 +8,74 @@ require grad (no backward yet, ROADMAP A2).  For a CPU tensor it computes
 :func:`~.ref.lru_scan_ref`.  ``force_ref=True`` computes the plain version
 on any device; ``chip_smoke.py`` uses it to hold the kernel against its
 plain version, and the serve path never sets it.  ``lru_scan.launches``
-counts kernel launches.  Any S and any C are taken.
+counts kernel calls (one a call; each is a memset of the look-back
+workspace and the one-pass kernel).  Any S and any C are taken.
+
+:func:`plan` picks the kernel's chunk length, channel tile and workspace
+for a shape; :func:`use_vec` whether it may copy 16 bytes at a time.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from ..build import load
 from ..guard import refuse_grad
-from .ref import lru_scan_ref, lru_sequential_ref
+from .ref import lru_chunked_ref, lru_scan_ref, lru_sequential_ref
 
-__all__ = ["lru_scan", "lru_scan_ref", "lru_sequential_ref", "SOURCE"]
+__all__ = ["lru_scan", "lru_scan_ref", "lru_sequential_ref",
+           "lru_chunked_ref", "plan", "use_vec", "Plan", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
-CHUNK = 64  # time steps per (channel, chunk) thread of the kernel
+# Time steps a chunk, at every S.  The carries round at chunk boundaries,
+# so h's bits depend on it (and on nothing else of the launch): a new
+# value is a new arithmetic, to be held to the plain version again.
+CHUNK = 64
+# Channels a block (one warp, one thread a channel), at every S: a tile of
+# 16 KB, so 13 blocks fit an SM's shared memory, and tiles in flight, not
+# warps, keep the loads going while look-backs wait.  It was the fastest
+# of 32, 64, 96 and 128 at every serve shape on the H100 (PERF.md).
+TILE = 32
+MAX_GRID = 2**31 - 1  # CUDA's limit on gridDim.x
+
+
+class Plan(NamedTuple):
+    """One call's launch: ``T`` steps a chunk, ``tile`` channels a block,
+    ``blocks`` tiles (one block each), ``ws_bytes`` of workspace (each
+    chunk's aggregate and inclusive carry by channel, and the tile
+    counter)."""
+    T: int
+    tile: int
+    nchunks: int
+    blocks: int
+    ws_bytes: int
+
+
+def plan(B: int, S: int, C: int) -> Plan:
+    """The kernel's launch for a (B, S, C) scan."""
+    nchunks = -(-S // CHUNK)
+    blocks = B * nchunks * -(-C // TILE)
+    if blocks > MAX_GRID:
+        raise ValueError(f"lru_scan: {blocks} blocks exceed CUDA's grid")
+    return Plan(T=CHUNK, tile=TILE, nchunks=nchunks, blocks=blocks,
+                ws_bytes=12 * (nchunks - 1) * B * C + 4)
+
+
+def use_vec(a, b) -> bool:
+    """16-byte copies take whole quads of channels from aligned bases."""
+    return (a.shape[-1] % 4 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0)
 
 
 @functools.cache
 def _library():
     """The bound C entry point, built and loaded once per process."""
     fn = load(SOURCE).lru_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -64,13 +107,13 @@ def lru_scan(a, b, *, force_ref=False):
     h = torch.empty_like(a)
     if h.numel() == 0:
         return h
-    nsum = (S + CHUNK - 1) // CHUNK - 1
-    sums = torch.empty((2, B, max(nsum, 1), C), dtype=torch.float32,
-                       device=a.device)
+    p = plan(B, S, C)
+    # the workspace stays referenced until the launch is enqueued
+    ws = torch.empty(p.ws_bytes, dtype=torch.uint8, device=a.device)
     fn = _library()
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), sums[0].data_ptr(),
-                 sums[1].data_ptr(), B, S, C, CHUNK,
+        err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), ws.data_ptr(),
+                 B, S, C, p.T, p.tile, int(use_vec(a, b)),
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lru_scan kernel launch failed: cudaError {err}")

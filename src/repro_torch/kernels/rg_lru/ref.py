@@ -11,7 +11,10 @@ fp32:
   axis: the composition of affine maps that the Pallas kernel's body runs
   inside one time block (``repro/kernels/rg_lru/rg_lru.py`` ``_kernel``),
   and that ``associative_scan`` runs in ``repro/models/rglru.py``
-  ``rglru_scan_ref``.
+  ``rglru_scan_ref``;
+* :func:`lru_chunked_ref` is the CUDA kernel's own order: each chunk's
+  affine map from h = 0, the fold of the maps in time order into the
+  carry entering each chunk, then each chunk walked from its carry.
 
 The wrapper (``ops.py``) takes :func:`lru_scan_ref` for CPU tensors;
 ``chip_smoke.py`` holds the CUDA kernel against it on the card.
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lru_scan_ref", "lru_sequential_ref"]
+__all__ = ["lru_scan_ref", "lru_sequential_ref", "lru_chunked_ref"]
 
 
 def lru_scan_ref(a, b):
@@ -55,3 +58,32 @@ def lru_sequential_ref(a, b):
     if not hs:
         return torch.empty_like(a)
     return torch.stack(hs, dim=1)
+
+
+def lru_chunked_ref(a, b, chunk):
+    """The kernel's order with ``chunk`` steps a chunk: each chunk's map
+    (A = prod a in time order, H = the walk from h = 0), the carry
+    entering chunk k folded as ``carry = A_{k-1} carry + H_{k-1}`` from
+    0, then each chunk walked from its carry.  A ragged last chunk is
+    padded with a = 1, b = 0, which leave every map as it was."""
+    a, b = a.float(), b.float()
+    B, S, C = a.shape
+    if S == 0:
+        return torch.empty_like(a)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    a = torch.cat([a, a.new_ones(B, pad, C)], 1).view(B, n, chunk, C)
+    b = torch.cat([b, b.new_zeros(B, pad, C)], 1).view(B, n, chunk, C)
+    A, H = torch.ones_like(a[:, :, 0]), torch.zeros_like(a[:, :, 0])
+    for t in range(chunk):  # every chunk's map at once
+        H = a[:, :, t] * H + b[:, :, t]
+        A = A * a[:, :, t]
+    carry, enter = torch.zeros_like(A[:, 0]), []
+    for k in range(n):
+        enter.append(carry)
+        carry = A[:, k] * carry + H[:, k]
+    h, out = torch.stack(enter, 1), []
+    for t in range(chunk):
+        h = a[:, :, t] * h + b[:, :, t]
+        out.append(h)
+    return torch.stack(out, 2).reshape(B, n * chunk, C)[:, :S]

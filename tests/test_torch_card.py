@@ -30,8 +30,11 @@ Kernels and tolerances:
   requires grad (no backward yet, ROADMAP A2);
 * B7 RG-LRU scan: 1e-5 in fp32 (tests/test_kernels.py:86-87) against the
   plain doubling scan and the sequential loop, at the JAX package's test
-  shapes, ragged S and C, and recurrentgemma-9b's serve shapes; a long
-  near-1 decay against the loop in fp64 (see its test).
+  shapes, ragged S and C, S below, at and past one 64-step chunk, and
+  recurrentgemma-9b's serve shapes; an input 4-byte but not 16-byte
+  aligned; two calls bitwise equal and within 1e-5 of the plain version
+  of the kernel's own order (``lru_chunked_ref``); a long near-1 decay
+  against the loop in fp64 (see its test).
 
 ``chip_smoke.py`` makes the same checks at more shapes and times them.
 """
@@ -339,7 +342,8 @@ LRU_TOL = 1e-5
 # recurrentgemma-9b's serve shapes (C = lru_width = 4096)
 LRU_SHAPES = [(2, 64, 32), (1, 128, 64), (1, 32, 128), (3, 64, 32),
               (1, 100, 48), (3, 37, 5), (2, 1, 7), (3, 1000, 4100),
-              (1, 100, 4096), (1, 2048, 4096), (1, 2560, 4096)]
+              (1, 64, 4096), (1, 65, 4096)] + [
+    (1, s, 4096) for s in (100, 256, 512, 1024, 1536, 2048, 2304, 2560)]
 
 
 @pytest.mark.parametrize("shape", LRU_SHAPES)
@@ -355,6 +359,38 @@ def test_lru_kernel_matches_plain_version(cuda_device, shape):
     torch.testing.assert_close(got, want, atol=LRU_TOL, rtol=LRU_TOL)
     seq = lru_ops.lru_sequential_ref(a, b)
     torch.testing.assert_close(got, seq, atol=LRU_TOL, rtol=LRU_TOL)
+
+
+def test_lru_kernel_misaligned_input(cuda_device):
+    """A contiguous input at a 4-byte but not 16-byte aligned address takes
+    the element-by-element copies, and agrees as the aligned one does."""
+    shape, n = (2, 300, 4096), 2 * 300 * 4096
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    a = torch.rand(n + 1, generator=g, device=cuda_device).clamp(0.2, 0.999)
+    b = torch.randn(n + 1, generator=g, device=cuda_device)
+    a, b = a[1:].view(shape), b[1:].view(shape)  # 4 bytes past the base
+    assert a.data_ptr() % 16 == 4 and b.data_ptr() % 16 == 4
+    assert a.is_contiguous() and not lru_ops.use_vec(a, b)
+    got = lru_ops.lru_scan(a, b)
+    want = lru_ops.lru_scan(a, b, force_ref=True)
+    torch.testing.assert_close(got, want, atol=LRU_TOL, rtol=LRU_TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 2560, 4096), (3, 1000, 4100),
+                                   (1, 100, 4096)])
+def test_lru_kernel_bitwise_repeat_and_chunked_order(cuda_device, shape):
+    """The look-back carry is the same fmafs wherever it stops: two calls
+    give bitwise the same h, one launch counted each; h matches the plain
+    version of the kernel's own order (``lru_chunked_ref``) within 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + 1)
+    a = torch.rand(shape, generator=g, device=cuda_device).clamp(0.2, 0.999)
+    b = torch.randn(shape, generator=g, device=cuda_device)
+    before = lru_ops.lru_scan.launches
+    first, second = lru_ops.lru_scan(a, b), lru_ops.lru_scan(a, b)
+    assert lru_ops.lru_scan.launches == before + 2
+    assert torch.equal(first, second)
+    want = lru_ops.lru_chunked_ref(a, b, lru_ops.CHUNK)
+    torch.testing.assert_close(first, want, atol=LRU_TOL, rtol=LRU_TOL)
 
 
 def test_lru_kernel_decay_stability_long_sequence(cuda_device):
