@@ -184,6 +184,10 @@ CHECK_SHAPES = SERVE_SHAPES + [
 # inside the window, is the same function, as no row is fully masked)
 D256_TIME_SHAPES = [(1, 2048, 2048, 16, 1, 256, True, 2048),
                     (1, 2560, 2560, 16, 1, 256, True, 2048)]
+# The bf16 tensor-core instances (flash_fwd_tc<D>, D 64, 128, 256, as
+# their mangled names spell them), each gated on no spill in [build]
+FLASH_TC_KERNELS = ("flash_fwd_tcILi64E", "flash_fwd_tcILi128E",
+                    "flash_fwd_tcILi256E")
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # The kernel computes in fp32 and rounds its output to bf16 once, so each
 # bf16 output lies within half a bf16 ulp (at most 2^-8 relative) of the
@@ -262,7 +266,8 @@ SSD_TIME_SHAPES = [(1, s, 32, 64, 1, 128, 128) for s in (128, 256, 512,
 # half a bf16 ulp of the plain version in fp32, plus that 3e-4.
 SSD_TOL = 3e-4
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu"
-# B6's kernels: bf16 on the tensor cores in three launches, fp32 in one
+# B6's kernels: bf16 on the tensor cores in three launches (each gated
+# on no spill in [build]), fp32 in one
 SSD_KERNELS = ("ssd_chunk_state", "ssd_state_carry", "ssd_chunk_out",
                "ssd_scan_fp32")
 SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:69"
@@ -277,7 +282,8 @@ LRU_SERVE_SHAPES = [(1, s, 4096) for s in (100, 1024, 2048, 2560)]
 LRU_MORE_SHAPES = [(3, 1000, 4100), (3, 37, 5)]
 LRU_TOL = 1e-5
 LRU_SOURCE = "src/repro_torch/kernels/rg_lru/csrc/lru_scan.cu"
-# B7's one-pass kernel: 16-byte copies, and element by element
+# B7's one-pass kernel: 16-byte copies, and element by element (each
+# gated on no spill in [build])
 LRU_KERNELS = ("lru_scan_vec", "lru_scan_elem")
 LRU_REPLACES = "src/repro/kernels/rg_lru/rg_lru.py:59"
 HYBRID_PROMPT_LENS = (100, 256, 512, 1024, 1536, 2048, 2304, 2560)
@@ -1495,6 +1501,10 @@ def phase_lru_kernel():
         kern = lambda: lru_ops.lru_scan(a, b)
         plain = lambda: lru_ops.lru_scan(a, b, force_ref=True)
         ms, plain_ms = card_ms(kern, 20), card_ms(plain, 3)
+        # one elementwise call that moves the same bytes: a practical roof
+        # for any one pass over a and b
+        h = torch.empty_like(a)
+        roof_ms = card_ms(lambda: torch.add(a, b, out=h), 20)
         B, S, C = shape
         nbytes = 12 * B * S * C  # a and b read once, h written once
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1507,7 +1517,8 @@ def phase_lru_kernel():
               f"ms, plain {plain_ms:.5f} ms, bound {t_bytes:.5f} ms (bytes: "
               f"{nbytes} bytes; the {2 * B * S * C} flops take "
               f"{t_ops:.5f} ms) -> {nbytes / ms / 1e6:.1f} GB/s, "
-              f"{t_bytes / ms:.2%} of the bound")
+              f"{t_bytes / ms:.2%} of the bound; torch.add of the same "
+              f"bytes {roof_ms:.5f} ms")
     return max_err, rows
 
 
@@ -1695,93 +1706,48 @@ def _to_fp32_in_place(tree):
             tree[key] = leaf.float()
 
 
-def ptxas_spills(log: str) -> dict:
-    """Spill stores and loads (bytes) of each kernel in a ``-Xptxas -v``
-    report, by mangled name."""
-    spills, name = {}, None
-    for line in log.splitlines():
-        if "Function properties for " in line:
-            name = line.split("Function properties for ", 1)[1].strip()
-        elif name is not None and "spill stores" in line:
-            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                              r"spill loads", line)
-            spills[name] = (int(found[1]), int(found[2]))
-            name = None
-    return spills
-
-
 def ptxas_by_kernel(log: str, names) -> dict:
     """``{name: (registers, spill stores, spill loads)}`` from a
     ``-Xptxas -v`` report, for the kernels whose mangled names hold one
-    of ``names``."""
-    out, name, spill = {}, None, None
+    of ``names`` (registers None where the report gives none)."""
+    out, name, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Function properties for " in line:
             mangled = line.split("Function properties for ", 1)[1]
             name = next((n for n in names if n in mangled), None)
-            spill = None
+            spill = (0, 0)
         elif name is not None and "spill stores" in line:
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", line)
             spill = (int(found[1]), int(found[2]))
+            out[name] = (None,) + spill
         elif name is not None and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line)[1])
-            out[name] = (regs,) + (spill or (0, 0))
+            out[name] = (regs,) + spill
             name = None
     return out
 
 
-def check_tc_spills(log: str) -> None:
-    """Every bf16 tensor-core flash instance (D 64, 128, 256) compiled
-    with no spill, as the kernel's register budget is meant to give."""
-    tc = {n: s for n, s in ptxas_spills(log).items() if "flash_fwd_tc" in n}
-    if len(tc) != 3:
-        raise AssertionError(f"expected 3 flash_fwd_tc instances in the "
-                             f"ptxas report, found {len(tc)}")
-    spilled = {n: s for n, s in tc.items() if s != (0, 0)}
-    if spilled:
-        raise AssertionError(f"flash_fwd_tc spills (stores, loads): "
-                             f"{spilled}")
-    print(f"  flash_fwd_tc: {len(tc)} instances, 0 spill bytes")
-
-
-def check_b6_spills(log: str) -> None:
-    """Print B6's registers and spills by kernel; fail unless each of the
-    three bf16 kernels is in the report with no spill (``ssd_chunk_out``
-    runs one register below its cap of 128 under ``__launch_bounds__(256,
-    2)``, so a later edit could tip it over)."""
-    report = ptxas_by_kernel(log, SSD_KERNELS)
+def check_spills(label: str, log: str, gated, shown=()) -> None:
+    """Print the registers and spills of the kernels ``gated`` and
+    ``shown`` in a ``-Xptxas -v`` report; fail unless each kernel of
+    ``gated`` is in it with no spill.  The gated kernels are built to keep
+    their working set in registers and shared memory: a spill would move
+    it through local memory (B7: the second read of a and b that its one
+    pass removes; B6's ``ssd_chunk_out`` runs one register below its cap
+    of 128, so a later edit could tip it over)."""
+    report = ptxas_by_kernel(log, tuple(gated) + tuple(shown))
     for name, (regs, st, ld) in report.items():
-        print(f"  B6 {name}: {regs} registers, {st} bytes spill stores, "
-              f"{ld} bytes spill loads")
-    bf16 = [n for n in SSD_KERNELS if n != "ssd_scan_fp32"]
-    missing = [n for n in bf16 if n not in report]
+        print(f"  {label} {name}: {regs} registers, {st} bytes spill "
+              f"stores, {ld} bytes spill loads")
+    missing = [n for n in gated if n not in report]
     if missing:
-        raise AssertionError(f"B6 kernels missing from the ptxas report: "
-                             f"{missing}")
-    spilled = {n: report[n][1:] for n in bf16 if report[n][1:] != (0, 0)}
+        raise AssertionError(f"{label}: expected {len(gated)} kernels in "
+                             f"the ptxas report, missing {missing}")
+    spilled = {n: report[n][1:] for n in gated if report[n][1:] != (0, 0)}
     if spilled:
-        raise AssertionError(f"B6 bf16 kernels spill (stores, loads): "
-                             f"{spilled}")
-
-
-def check_b7_spills(log: str) -> None:
-    """Print B7's registers and spills by kernel; fail unless both of its
-    kernels are in the report with no spill (a spilled chunk would bring
-    back through local memory the second read of a and b that the
-    one-pass design removes)."""
-    report = ptxas_by_kernel(log, LRU_KERNELS)
-    for name, (regs, st, ld) in report.items():
-        print(f"  B7 {name}: {regs} registers, {st} bytes spill stores, "
-              f"{ld} bytes spill loads")
-    missing = [n for n in LRU_KERNELS if n not in report]
-    if missing:
-        raise AssertionError(f"B7 kernels missing from the ptxas report: "
-                             f"{missing}")
-    spilled = {n: report[n][1:] for n in LRU_KERNELS
-               if report[n][1:] != (0, 0)}
-    if spilled:
-        raise AssertionError(f"B7 kernels spill (stores, loads): {spilled}")
+        raise AssertionError(f"{label}: ptxas reports spills (stores, "
+                             f"loads) in {spilled}")
 
 
 def main() -> int:
@@ -1809,11 +1775,11 @@ def main() -> int:
         for line, count in lines.items():
             print(f"  {line}" + (f" (x{count})" if count > 1 else ""))
         if source == flash_ops.SOURCE:
-            check_tc_spills(rec["log"])
+            check_spills("B5", rec["log"], FLASH_TC_KERNELS)
         if source == ssd_ops.SOURCE:
-            check_b6_spills(rec["log"])
+            check_spills("B6", rec["log"], SSD_KERNELS[:3], SSD_KERNELS[3:])
         if source == lru_ops.SOURCE:
-            check_b7_spills(rec["log"])
+            check_spills("B7", rec["log"], LRU_KERNELS)
 
     print("[kernels]")
     max_err, rows, rows256 = phase_kernels()

@@ -18,9 +18,12 @@
 // 2016).  Each element of a and b is read from device memory once, into
 // shared memory, and h is written once.  The TPU keeps the carry in VMEM
 // across a sequential time grid; blocks on the card run in no order, so
-// the carry crosses blocks through device memory.  One block takes a
-// tile of (batch, chunk of T steps, `tile` channels), one thread a
-// channel:
+// the carry crosses blocks through device memory.  One block (one warp)
+// takes a tile of (batch, chunk of T steps, kTile = 32 channels), one
+// thread a channel; a tile is 16 KB of shared memory at T = 64, so 13
+// blocks fit an SM, and tiles in flight keep the loads going while
+// look-backs wait (32 was the fastest of 32, 64, 96 and 128 channels at
+// every serve shape on the H100, PERF.md):
 //   1. Its tile id comes from a global atomic counter, not from
 //      blockIdx, in chunk-major order: the predecessors of a tile (same
 //      batch and channels, earlier chunks) have lower ids.  A block thus
@@ -40,8 +43,8 @@
 //      H_k); a window with none is read again.  It publishes its own
 //      inclusive carry, fmaf(A, carry, H).  Wherever the look-back stops,
 //      the carry is the same sequence of fmafs from 0 over every earlier
-//      chunk's map, so h is bitwise the same from run to run and for
-//      every tile; only T changes it.
+//      chunk's map, so h is bitwise the same from run to run; only T
+//      changes it.
 //   5. Apply: it walks its chunk again from the carry entering it, out
 //      of shared memory, h = fmaf(a, h, b), and writes h (neighbouring
 //      threads, neighbouring channels: one 128-byte line a warp).
@@ -67,7 +70,7 @@
 
 namespace {
 
-constexpr int kMaxTile = 128;  // channels (threads) per block
+constexpr int kTile = 32;     // channels (threads) per block
 constexpr int kWindow = 8;     // predecessors one look-back read covers
 constexpr unsigned kUnset = ~0u;  // a word not yet published
 constexpr uint64_t kSpinNs = 2000000000ull;  // a wait past 2 s is a hang
@@ -234,33 +237,33 @@ __device__ __forceinline__ void walk_out(const float* __restrict__ sa,
 // One block, one tile: copy in, aggregate, look back, apply.
 template <bool kVec>
 __device__ __forceinline__ void scan_tile(const Args& p) {
-  extern __shared__ __align__(16) float smem[];  // a, then b: T x tile
+  extern __shared__ __align__(16) float smem[];  // a, then b: T x kTile
   __shared__ int s_id;
-  const int tile = blockDim.x, x = threadIdx.x;
+  const int x = threadIdx.x;
   if (x == 0) s_id = (int)(atomicAdd(p.counter, 1u) + 1u);
   __syncthreads();
   const int id = s_id;
   const int bb = id % p.B, rest = id / p.B;  // id = (k nct + ct) B + bb
   const int ct = rest % p.nct, k = rest / p.nct;
   const int t0 = k * p.T, rows = min(p.T, p.S - t0);
-  const int c0 = ct * tile, cols = min(tile, p.C - c0);
+  const int c0 = ct * kTile, cols = min(kTile, p.C - c0);
   const long base = ((long)bb * p.S + t0) * p.C + c0;
   float* sa = smem;
-  float* sb = smem + p.T * tile;
+  float* sb = smem + p.T * kTile;
   if (kVec) {  // C % 4 == 0 and 16-byte aligned a, b: whole quads
     const int q = cols / 4;
-    for (int i = x; i < rows * q; i += tile) {
+    for (int i = x; i < rows * q; i += kTile) {
       const int r = i / q, j = 4 * (i - r * q);
       const long g = base + (long)r * p.C + j;
-      cp_async16(sa + r * tile + j, p.a + g);
-      cp_async16(sb + r * tile + j, p.b + g);
+      cp_async16(sa + r * kTile + j, p.a + g);
+      cp_async16(sb + r * kTile + j, p.b + g);
     }
   } else {
-    for (int i = x; i < rows * cols; i += tile) {
+    for (int i = x; i < rows * cols; i += kTile) {
       const int r = i / cols, j = i - r * cols;
       const long g = base + (long)r * p.C + j;
-      cp_async4(sa + r * tile + j, p.a + g);
-      cp_async4(sb + r * tile + j, p.b + g);
+      cp_async4(sa + r * kTile + j, p.a + g);
+      cp_async4(sb + r * kTile + j, p.b + g);
     }
   }
   asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
@@ -274,46 +277,46 @@ __device__ __forceinline__ void scan_tile(const Args& p) {
   const long step = (long)p.B * p.C;
   const long slot = k * step + (long)bb * p.C + c0 + x;
   float A = 1.f, H = 0.f, carry = 0.f;
-  if (!last) walk_map(sa + x, sb + x, tile, rows, &A, &H);
+  if (!last) walk_map(sa + x, sb + x, kTile, rows, &A, &H);
   if (k > 0) {
     if (!last)
       st_pair(p.agg + slot, (uint64_t)word(A) << 32 | word(H));
     carry = look_back(p, k, slot, step);
   }
   if (!last) st_word(p.inc + slot, word(fmaf(A, carry, H)));
-  walk_out(sa + x, sb + x, tile, rows, carry, p.h + base + x, p.C);
+  walk_out(sa + x, sb + x, kTile, rows, carry, p.h + base + x, p.C);
 }
 
-__global__ void __launch_bounds__(kMaxTile) lru_scan_vec(const Args p) {
+__global__ void __launch_bounds__(kTile) lru_scan_vec(const Args p) {
   scan_tile<true>(p);
 }
-__global__ void __launch_bounds__(kMaxTile) lru_scan_elem(const Args p) {
+__global__ void __launch_bounds__(kTile) lru_scan_elem(const Args p) {
   scan_tile<false>(p);
 }
 
 }  // namespace
 
-// a, b, h: (B, S, C) fp32, contiguous.  T: time steps a chunk; tile:
-// channels a block, a multiple of 32 up to 128.  vec: 16-byte copies (C
-// % 4 == 0, a and b 16-byte aligned).  ws: 12 (nchunks - 1) B C + 4
-// bytes, 8-byte aligned (the aggregates, the inclusive carries, the tile
-// counter), set to all ones here.  One block a tile.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// a, b, h: (B, S, C) fp32, contiguous.  T: time steps a chunk, at most
+// 192 (a tile's a and b within the 48 KB of shared memory a launch gets
+// without opting in).  vec: 16-byte copies (C % 4 == 0, a and b 16-byte
+// aligned).  ws: 12 (nchunks - 1) B C + 4 bytes, 8-byte aligned (the
+// aggregates, the inclusive carries, the tile counter), set to all ones
+// here.  One block a tile of kTile channels.  Returns cudaGetLastError()
+// after the launches (0 on success).
 extern "C" int lru_scan_fwd(const float* a, const float* b, float* h,
-                            void* ws, int B, int S, int C, int T, int tile,
-                            int vec, void* stream) {
+                            void* ws, int B, int S, int C, int T, int vec,
+                            void* stream) {
   if (B <= 0 || S <= 0 || C <= 0) return 0;
-  if (T <= 0 || tile <= 0 || tile > kMaxTile || tile % 32 != 0 ||
-      reinterpret_cast<uintptr_t>(ws) % 8 != 0)
+  if (T <= 0 || reinterpret_cast<uintptr_t>(ws) % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (vec && (C % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
               reinterpret_cast<uintptr_t>(b) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const int nchunks = (S + T - 1) / T;
-  const int nct = (C + tile - 1) / tile;
+  const int nct = (C + kTile - 1) / kTile;
   const long long ntiles = (long long)B * nchunks * nct;
-  const size_t smem = 2 * sizeof(float) * (size_t)T * tile;
-  if (ntiles >= (1ll << 31) - 1 || smem > 200 * 1024)
+  const size_t smem = 2 * sizeof(float) * (size_t)T * kTile;
+  if (ntiles >= (1ll << 31) - 1 || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t nsum = (size_t)(nchunks - 1) * B * C;
@@ -321,12 +324,9 @@ extern "C" int lru_scan_fwd(const float* a, const float* b, float* h,
   unsigned* inc = reinterpret_cast<unsigned*>(agg + nsum);
   const Args args{a, b, h, agg, inc, inc + nsum,
                   B, S, C, T, nchunks, nct};
-  auto kernel = vec ? lru_scan_vec : lru_scan_elem;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = cudaMemsetAsync(ws, 0xff, 12 * nsum + 4, st);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(ws, 0xff, 12 * nsum + 4, st);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)ntiles, tile, smem, st>>>(args);
+  (vec ? lru_scan_vec : lru_scan_elem)<<<(unsigned)ntiles, kTile, smem,
+                                         st>>>(args);
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,8 @@ plain version, and the serve path never sets it.  ``lru_scan.launches``
 counts kernel calls (one a call; each is a memset of the look-back
 workspace and the one-pass kernel).  Any S and any C are taken.
 
-:func:`plan` picks the kernel's chunk length, channel tile and workspace
-for a shape; :func:`use_vec` whether it may copy 16 bytes at a time.
+:func:`plan` picks the kernel's chunk length and workspace for a shape;
+:func:`use_vec` whether it may copy 16 bytes at a time.
 """
 from __future__ import annotations
 
@@ -35,21 +35,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
 # so h's bits depend on it (and on nothing else of the launch): a new
 # value is a new arithmetic, to be held to the plain version again.
 CHUNK = 64
-# Channels a block (one warp, one thread a channel), at every S: a tile of
-# 16 KB, so 13 blocks fit an SM's shared memory, and tiles in flight, not
-# warps, keep the loads going while look-backs wait.  It was the fastest
-# of 32, 64, 96 and 128 at every serve shape on the H100 (PERF.md).
-TILE = 32
+TILE = 32  # channels a block, kTile in the source
 MAX_GRID = 2**31 - 1  # CUDA's limit on gridDim.x
 
 
 class Plan(NamedTuple):
-    """One call's launch: ``T`` steps a chunk, ``tile`` channels a block,
-    ``blocks`` tiles (one block each), ``ws_bytes`` of workspace (each
+    """One call's launch: ``T`` steps a chunk, ``blocks`` tiles of
+    ``TILE`` channels (one block each), ``ws_bytes`` of workspace (each
     chunk's aggregate and inclusive carry by channel, and the tile
     counter)."""
     T: int
-    tile: int
     nchunks: int
     blocks: int
     ws_bytes: int
@@ -61,7 +56,7 @@ def plan(B: int, S: int, C: int) -> Plan:
     blocks = B * nchunks * -(-C // TILE)
     if blocks > MAX_GRID:
         raise ValueError(f"lru_scan: {blocks} blocks exceed CUDA's grid")
-    return Plan(T=CHUNK, tile=TILE, nchunks=nchunks, blocks=blocks,
+    return Plan(T=CHUNK, nchunks=nchunks, blocks=blocks,
                 ws_bytes=12 * (nchunks - 1) * B * C + 4)
 
 
@@ -75,7 +70,7 @@ def use_vec(a, b) -> bool:
 def _library():
     """The bound C entry point, built and loaded once per process."""
     fn = load(SOURCE).lru_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -113,7 +108,7 @@ def lru_scan(a, b, *, force_ref=False):
     fn = _library()
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), ws.data_ptr(),
-                 B, S, C, p.T, p.tile, int(use_vec(a, b)),
+                 B, S, C, p.T, int(use_vec(a, b)),
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lru_scan kernel launch failed: cudaError {err}")

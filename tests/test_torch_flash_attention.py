@@ -242,6 +242,24 @@ ptxas info    : Function properties for _Z12flash_fwd_tcILi256EEv
 """
 
 
+def test_chip_smoke_reports_tc_registers_and_spills():
+    """The smoke script's [build] report of the three bf16 instances, by
+    the template argument in their mangled names; the fp32 SIMT instance
+    is not among them, and an instance whose report gives no registers
+    still counts."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    assert chip_smoke.ptxas_by_kernel(
+        _PTXAS.format(s128=4, l128=8), chip_smoke.FLASH_TC_KERNELS) == {
+        "flash_fwd_tcILi64E": (168, 0, 0), "flash_fwd_tcILi128E": (None, 4, 8),
+        "flash_fwd_tcILi256E": (None, 0, 0)}
+
+
 @pytest.mark.parametrize("log, error", [
     (_PTXAS.format(s128=0, l128=0), None),
     (_PTXAS.format(s128=4, l128=0), "spills"),
@@ -261,7 +279,7 @@ def test_chip_smoke_spill_check(log, error):
     import chip_smoke
 
     if error is None:
-        chip_smoke.check_tc_spills(log)
+        chip_smoke.check_spills("B5", log, chip_smoke.FLASH_TC_KERNELS)
     else:
         with pytest.raises(AssertionError, match=error):
-            chip_smoke.check_tc_spills(log)
+            chip_smoke.check_spills("B5", log, chip_smoke.FLASH_TC_KERNELS)

@@ -165,14 +165,13 @@ PLAN_SHAPES = [(1, s, 4096) for s in (100, 256, 512, 1024, 1536, 2048, 2304,
 
 @pytest.mark.parametrize("B,S,C", PLAN_SHAPES)
 def test_kernel_plan(B, S, C):
-    """The wrapper's launch: chunks of 64 steps (h's bits depend on it), a
-    tile of one warp, a grid within CUDA's limit and
+    """The wrapper's launch: chunks of 64 steps (h's bits depend on it),
+    tiles of one warp's 32 channels, a grid within CUDA's limit and
     the workspace the kernel's C interface reads (a 64-bit aggregate and a
     32-bit inclusive carry for each channel of each chunk but the last,
     then the 32-bit tile counter)."""
     p = ops.plan(B, S, C)
     assert p.T == 64 and p.nchunks == -(-S // 64)
-    assert p.tile == 32
     assert p.blocks == B * p.nchunks * -(-C // 32) <= 2**31 - 1
     assert p.ws_bytes == (8 + 4) * (p.nchunks - 1) * B * C + 4
 
@@ -189,21 +188,6 @@ def test_kernel_plan_fills_the_card_at_serve_shapes():
 def test_kernel_plan_refuses_a_grid_past_cuda_limit():
     with pytest.raises(ValueError, match="grid"):
         ops.plan(2**20, 2**18, 32)  # 2**32 blocks
-
-
-def test_tile_probe_needs_a_card_and_restores_the_tile(monkeypatch):
-    """``python -m repro_torch.launch.lru_tiles`` times the kernel, so it
-    raises without a card; its tile override leaves the wrapper's tile
-    as it was."""
-    from repro_torch.core import KampingError
-    from repro_torch.launch import lru_tiles
-
-    with lru_tiles._tile(64):
-        assert ops.plan(1, 100, 4096).tile == 64
-    assert ops.plan(1, 100, 4096).tile == ops.TILE == 32
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(KampingError, match="device='cpu'"):
-        lru_tiles.main([])
 
 
 def test_use_vec_needs_quads_and_aligned_bases():
@@ -261,10 +245,10 @@ def test_chip_smoke_b7_spill_check(log, error):
     report with no spill."""
     cs = _chip_smoke()
     if error is None:
-        cs.check_b7_spills(log)
+        cs.check_spills("B7", log, cs.LRU_KERNELS)
     else:
         with pytest.raises(AssertionError, match=error):
-            cs.check_b7_spills(log)
+            cs.check_spills("B7", log, cs.LRU_KERNELS)
 
 
 def test_wrapper_refuses_other_devices_and_bad_inputs():

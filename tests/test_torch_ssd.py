@@ -381,11 +381,13 @@ def test_chip_smoke_b6_spill_check(log, error):
         os.path.abspath(__file__))))
     import chip_smoke
 
+    # the bf16 kernels gated, the fp32 kernel shown
+    gates = chip_smoke.SSD_KERNELS[:3], chip_smoke.SSD_KERNELS[3:]
     if error is None:
-        chip_smoke.check_b6_spills(log)
+        chip_smoke.check_spills("B6", log, *gates)
     else:
         with pytest.raises(AssertionError, match=error):
-            chip_smoke.check_b6_spills(log)
+            chip_smoke.check_spills("B6", log, *gates)
 
 
 def test_ssd_precision_probe_on_cpu(capsys):
